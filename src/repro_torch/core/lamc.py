@@ -10,6 +10,15 @@ The dense path of the paper's Algorithm 1. Per resample ``t``:
 Afterwards ``merging.signature_merge`` produces the consensus labels. The
 reference's ``lax.scan`` over resamples is a Python loop here.
 
+``LAMCConfig(input_format="bcoo")`` runs the sparse path (DESIGN.md §9) on a
+coalesced COO tensor, which is never densified: the plan is priced at the
+matrix's density, blocks and anchor slivers are scattered out of the
+stored entries (``partition.extract_blocks_sparse``), and a single-block
+plan covering the whole matrix on a non-dense route runs the atom straight
+on the prepared sparse operator (``sparse.prepare_operator``: the tiled
+block-sparse form, whose products are the CUDA SpMM kernels on the card,
+or dual-ELL).
+
 Randomness comes from ``torch.Generator`` streams seeded from ``plan.seed``;
 ``draws=`` replaces them with given index maps, anchors, sketches and
 k-means++ seeds (``interop.Draws``), which is how the tests run the port on
@@ -24,7 +33,8 @@ from typing import NamedTuple
 import torch
 
 from ..device import fp32_policy, resolve_device, seeded_generator
-from . import merging, partition, spectral
+from . import merging, partition, probability, spectral
+from . import sparse as _sparse
 
 __all__ = ["LAMCConfig", "LAMCResult", "lamc_cocluster", "run_resample",
            "anchor_features", "validate_config"]
@@ -39,8 +49,8 @@ _MERGE_STREAM = 8
 @dataclasses.dataclass(frozen=True)
 class LAMCConfig:
     """The reference's ``LAMCConfig``, field for field, so configurations
-    carry across. The port runs ``atom="scc"``, ``input_format="dense"`` and
-    ``spmm_impl="auto"``; the other values raise ``NotImplementedError``."""
+    carry across. ``atom="nmtf"`` is not ported yet and raises
+    ``NotImplementedError``."""
 
     n_row_clusters: int
     n_col_clusters: int
@@ -63,8 +73,8 @@ class LAMCConfig:
     assign_impl: str = "jnp"        # "jnp" | "pallas" (the CUDA kernels)
     svd_method: str = "randomized"  # "randomized" | "exact"
     qr_method: str = "qr"           # "qr" | "cholesky"
-    input_format: str = "dense"
-    spmm_impl: str = "auto"
+    input_format: str = "dense"     # "dense" | "bcoo" (a coalesced COO tensor)
+    spmm_impl: str = "auto"         # "auto" | "dense" | "dual_ell" | "tiled"
     assignment: str = "hard"        # "hard" | "overlap" (DESIGN.md §11)
     overlap_threshold: float = 0.25
     min_membership: int = 0
@@ -96,16 +106,9 @@ class LAMCResult(NamedTuple):
 
 def validate_config(cfg: LAMCConfig) -> None:
     """Raise on configurations the port does not run yet or that are wrong."""
-    if cfg.input_format == "bcoo":
-        raise NotImplementedError(
-            "input_format='bcoo' is the sparse path: ROADMAP.md queue 1, "
-            "slice 2 (the sparse path)")
-    if cfg.input_format != "dense":
+    if cfg.input_format not in ("dense", "bcoo"):
         raise ValueError(f"unknown input_format {cfg.input_format!r}")
-    if cfg.spmm_impl != "auto":
-        raise NotImplementedError(
-            f"spmm_impl={cfg.spmm_impl!r} selects a sparse backend: ROADMAP.md "
-            "queue 1, slice 2 (the sparse path)")
+    _sparse.validate_spmm_impl(cfg.spmm_impl)
     if cfg.atom == "nmtf":
         raise NotImplementedError(
             "atom='nmtf' is not ported yet: ROADMAP.md queue 1, slice 1 "
@@ -125,24 +128,56 @@ def validate_config(cfg: LAMCConfig) -> None:
 
 def anchor_features(a: torch.Tensor, anchor_rows: torch.Tensor,
                     anchor_cols: torch.Tensor):
-    """Anchor slivers ``(A[:, anchor_cols] (M, q), A[anchor_rows] (q, N))``."""
+    """Anchor slivers ``(A[:, anchor_cols] (M, q), A[anchor_rows] (q, N))``;
+    a COO matrix scatters its stored entries straight into them, O(nnz)."""
+    if _sparse.is_bcoo(a):
+        return (_sparse.gather_cols_dense(a, anchor_cols),
+                _sparse.gather_rows_dense(a, anchor_rows))
     return a.index_select(1, anchor_cols), a.index_select(0, anchor_rows)
+
+
+def _operator_index(given, n_points: int, groups: int, size: int,
+                    device: torch.device) -> torch.Tensor:
+    """The operator path's index map, ``arange`` as ``(groups, size)``; an
+    injected map must be that one (the path does not permute)."""
+    natural = torch.arange(n_points, device=device).reshape(groups, size)
+    if given is not None and not torch.equal(given.to(device), natural):
+        raise ValueError("the operator path does not permute: an injected "
+                         "index map must be arange(n).reshape(groups, size)")
+    return natural
 
 
 def run_resample(a: torch.Tensor, plan: partition.PartitionPlan,
                  cfg: LAMCConfig, slivers, t: int, *, row_idx=None,
-                 col_idx=None, omega=None, seeds=None, timer=spectral.no_timer):
+                 col_idx=None, omega=None, seeds=None, operator=None,
+                 timer=spectral.no_timer):
     """One resample: extract blocks, co-cluster them (batched), summarize.
 
     ``slivers`` are the anchor features from :func:`anchor_features`.
     ``row_idx`` / ``col_idx`` / ``omega`` / ``seeds`` replace this
     resample's drawn permutations, sketches and k-means++ seeds. Returns the
     per-resample tensors ``merging.signature_merge`` consumes.
+
+    ``operator`` (single-block plans only): the prepared sparse operand of
+    the whole matrix (``sparse.prepare_operator``). The atom runs on it
+    directly and the ``M x N`` block is never densified; the per-resample
+    permutation is skipped (with one block it only reorders points inside
+    the block), so the index maps are ``arange`` reshapes. The atom draws
+    from block 0's stream of resample ``t``.
     """
     b = plan.blocks_per_resample
-    with timer("extract"):
-        blocks, row_idx, col_idx = partition.extract_blocks(
-            a, plan, t, row_idx=row_idx, col_idx=col_idx)
+    if operator is not None:
+        if b != 1:
+            raise ValueError("the operator path needs a single-block plan")
+        row_idx = _operator_index(row_idx, plan.n_rows, plan.m, plan.phi, a.device)
+        col_idx = _operator_index(col_idx, plan.n_cols, plan.n, plan.psi, a.device)
+        blocks = operator
+    else:
+        extract = (partition.extract_blocks_sparse if cfg.input_format == "bcoo"
+                   else partition.extract_blocks)
+        with timer("extract"):
+            blocks, row_idx, col_idx = extract(a, plan, t, row_idx=row_idx,
+                                               col_idx=col_idx)
     res = spectral.scc(
         blocks, cfg.atom_k, cfg.atom_d, svd_iters=cfg.svd_iters,
         kmeans_iters=cfg.kmeans_iters, assign_impl=cfg.assign_impl,
@@ -173,22 +208,34 @@ def lamc_cocluster(a, cfg: LAMCConfig,
                    block_mask=None, *, draws=None,
                    device: str | torch.device = "cuda",
                    timer=spectral.no_timer) -> LAMCResult:
-    """Full LAMC pipeline (Algorithm 1) on a dense matrix ``a (M, N)``.
+    """Full LAMC pipeline (Algorithm 1) on a matrix ``a (M, N)``: dense, or a
+    coalesced COO tensor with ``cfg.input_format="bcoo"``.
 
-    ``plan=None`` derives the plan from the probabilistic model.
+    ``plan=None`` derives the plan from the probabilistic model, priced at
+    the matrix's density; ``cfg.spmm_impl`` picks the sparse operator of a
+    single-block plan, and the route that ran is ``result.plan.spmm_route``.
     ``block_mask`` (``(t_p, blocks_per_resample)`` bool, True = survived)
     drops the masked blocks' atoms from the merge. ``draws``
     (``interop.Draws``) replaces the seeded permutations, anchors, sketches
     and k-means++ seeds. ``a`` is moved to ``device``. ``timer(name)``
-    returns a context manager around each phase (``extract``,
-    ``normalize``, ``svd``, ``kmeans``, ``signatures``, ``merge``).
+    returns a context manager around each phase (``prepare_operator``,
+    ``extract``, ``normalize``, ``svd``, ``kmeans``, ``signatures``,
+    ``merge``).
     """
     validate_config(cfg)
     dev = resolve_device(device)
     fp32_policy()
-    a = torch.as_tensor(a, dtype=torch.float32, device=dev)
-    if a.ndim != 2:
-        raise ValueError(f"expected a dense (M, N) matrix, got {tuple(a.shape)}")
+    if cfg.input_format == "bcoo":
+        a = _sparse.operand_to(_sparse.validate_bcoo(a), dev)
+        density = _sparse.density(a)
+    elif _sparse.is_bcoo(a):
+        raise ValueError("got a COO matrix with input_format='dense'; set "
+                         "LAMCConfig(input_format='bcoo') for the sparse path")
+    else:
+        a = torch.as_tensor(a, dtype=torch.float32, device=dev)
+        if a.ndim != 2:
+            raise ValueError(f"expected a dense (M, N) matrix, got {tuple(a.shape)}")
+        density = 1.0
     n_rows, n_cols = a.shape
     if plan is None:
         plan = partition.make_plan(
@@ -202,10 +249,30 @@ def lamc_cocluster(a, cfg: LAMCConfig,
             expected_failed_blocks=cfg.expected_failed_blocks,
             grid_candidates=cfg.grid_candidates,
             svd_method=cfg.svd_method,
+            density=density,
+            spmm_impl=cfg.spmm_impl,
         )
     if (plan.n_rows, plan.n_cols) != (n_rows, n_cols):
         raise ValueError(f"plan is for {plan.n_rows} x {plan.n_cols}, matrix is "
                          f"{n_rows} x {n_cols}")
+    operator = None
+    if cfg.input_format == "bcoo":
+        # Only a single SCC block covering the whole matrix can run on the
+        # sparse operator; every other plan densifies its blocks, so its
+        # route is "dense" whatever the knob says. The plan search uses the
+        # same resolver, so what runs is what was priced.
+        single = (plan.blocks_per_resample == 1 and cfg.atom == "scc"
+                  and plan.phi == plan.n_rows and plan.psi == plan.n_cols)
+        route = probability.resolve_spmm_route(
+            cfg.spmm_impl, density, float(plan.phi) * plan.psi, single=single,
+            svd_method=cfg.svd_method)
+        if plan.spmm_route != route:
+            plan = dataclasses.replace(plan, spmm_route=route)
+        if single and route != "dense":
+            # One conversion, reused by every resample's products and served
+            # from the pattern cache when the same matrix comes again.
+            with timer("prepare_operator"):
+                operator = _sparse.prepare_operator(a, route)
     if block_mask is not None:
         block_mask = torch.as_tensor(block_mask, dtype=torch.bool, device=dev)
         want = (plan.t_p, plan.blocks_per_resample)
@@ -227,7 +294,8 @@ def lamc_cocluster(a, cfg: LAMCConfig,
     outs = []
     for t in range(plan.t_p):
         injected = {} if draws is None else draws.resample(t)
-        outs.append(run_resample(a, plan, cfg, slivers, t, timer=timer, **injected))
+        outs.append(run_resample(a, plan, cfg, slivers, t, operator=operator,
+                                 timer=timer, **injected))
     stacked = {key: torch.stack([o[key] for o in outs]) for key in outs[0]}
     del outs
 

@@ -21,7 +21,7 @@ from ..device import seeded_generator
 from . import probability
 
 __all__ = ["PartitionPlan", "make_plan", "resample_indices", "extract_blocks",
-           "coverage_probability"]
+           "extract_blocks_sparse", "coverage_probability"]
 
 # Stream id of the per-resample permutations in ``seeded_generator``.
 _PERM_STREAM = 0
@@ -38,8 +38,8 @@ class PartitionPlan:
     t_p: int          # number of resamples
     seed: int = 0
     detection_p: float = 1.0  # Theorem-1 lower bound used to pick t_p
-    # SpMM backend the plan priced its blocks with; always "dense" on the
-    # port's dense path.
+    # SpMM backend the plan priced its blocks with (``probability``); the
+    # sparse path of ``lamc_cocluster`` overwrites it with the route that ran.
     spmm_route: str = "dense"
 
     @property
@@ -168,4 +168,36 @@ def extract_blocks(a: torch.Tensor, plan: PartitionPlan, resample: int, *,
         .transpose(1, 2)
         .reshape(plan.m * plan.n, plan.phi, plan.psi)
     )
+    return blocks, row_idx, col_idx
+
+
+def extract_blocks_sparse(a: torch.Tensor, plan: PartitionPlan, resample: int, *,
+                          row_idx: torch.Tensor | None = None,
+                          col_idx: torch.Tensor | None = None):
+    """:func:`extract_blocks` for a coalesced COO matrix, O(nnz); the dense
+    ``M x N`` matrix never exists.
+
+    Every stored entry finds its destination ``(block, row, col)`` through
+    the inverse resample permutation and is scattered into the dense block
+    stack; entries whose row or column misses this resample's grid are
+    dropped. Bit-exact against :func:`extract_blocks` on the densified
+    matrix: each block cell receives one stored value or stays zero.
+    """
+    from . import sparse as _sparse
+
+    _sparse.validate_bcoo(a)
+    if row_idx is None or col_idx is None:
+        row_idx, col_idx = resample_indices(plan, resample, a.device)
+    idx, vals = a.indices(), a.values()
+    pr = _sparse._inverse(row_idx.reshape(-1), plan.n_rows)[idx[0]]
+    pc = _sparse._inverse(col_idx.reshape(-1), plan.n_cols)[idx[1]]
+    # Both sentinels must drop the entry explicitly: the column sentinel
+    # j == n would alias a valid block id i * n + n for i < m - 1.
+    valid = (pr < plan.rows_used) & (pc < plan.cols_used)
+    pr, pc, vals = pr[valid], pc[valid], vals[valid]
+    bid = torch.div(pr, plan.phi, rounding_mode="floor") * plan.n \
+        + torch.div(pc, plan.psi, rounding_mode="floor")
+    blocks = torch.zeros((plan.m * plan.n, plan.phi, plan.psi), dtype=vals.dtype,
+                         device=vals.device)
+    blocks[bid, pr % plan.phi, pc % plan.psi] = vals
     return blocks, row_idx, col_idx

@@ -11,6 +11,15 @@ stack ``(B, M, N)``:
   3. ``Z = [D1^{-1/2} U_hat ; D2^{-1/2} V_hat]`` stacked embedding.
   4. k-means on the rows of ``Z``; rows of A get ``labels[:M]``, cols
      ``labels[M:]``.
+
+Sparse operands (DESIGN.md §9) are one matrix each: a coalesced COO tensor,
+a dual-ELL operator (``sparse.EllOperator``) or a tiled block-sparse
+operator (``kernels.spmm.BlockSparseMatrix``). Normalization stays in the
+operand's format (degree sums and a rescale of the stored values, lazy on
+the card for the tiled form); the subspace iteration's products become
+SpMM, and a tiled operand runs the normal-equations form, one
+``ops.spmm_ata`` step per power iteration. Results carry a leading
+``B = 1``, so the rest of the atom is the batched dense code.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ import torch
 from ..device import fp32_policy, resolve_device, seeded_generator
 from ..kernels import ops
 from . import kmeans as _kmeans
+from . import sparse as _sparse
 
 __all__ = ["normalize_bipartite", "randomized_svd", "exact_svd", "scc",
            "SCCResult", "no_timer"]
@@ -48,10 +58,23 @@ def normalize_bipartite(a, eps: float = 1e-8,
                         device: str | torch.device = "cuda"):
     """``A_n = D1^{-1/2} A D2^{-1/2}`` per block, degrees on ``|A|``.
 
-    Returns ``(a_n, d1_isqrt (B, M), d2_isqrt (B, N))``.
+    Returns ``(a_n, d1_isqrt (B, M), d2_isqrt (B, N))``. A sparse operand
+    gives an operand of the same form and ``B = 1`` scales.
     """
-    a = torch.as_tensor(a, dtype=torch.float32,
-                        device=resolve_device(device)).contiguous()
+    dev = resolve_device(device)
+    if _sparse.is_sparse_operand(a):
+        a = _sparse.operand_to(a, dev)
+        if _sparse.is_ell(a):
+            (d1, d2), scale = _sparse.ell_abs_degree_sums(a), _sparse.ell_scale_rows_cols
+        elif _sparse.is_tiled(a):
+            (d1, d2), scale = (_sparse.tiled_abs_degree_sums(a),
+                               _sparse.tiled_scale_rows_cols)
+        else:
+            (d1, d2), scale = _sparse.abs_degree_sums(a), _sparse.scale_rows_cols
+        s1 = torch.rsqrt(torch.clamp_min(d1, eps))
+        s2 = torch.rsqrt(torch.clamp_min(d2, eps))
+        return scale(a, s1, s2), s1[None], s2[None]
+    a = torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
     return ops.bipartite_normalize(a, eps)
 
 
@@ -91,6 +114,9 @@ def randomized_svd(a, rank: int, n_iter: int = 4, qr_method: str = "qr",
         raise ValueError(f"qr_method must be one of {QR_METHODS}, got {qr_method!r}")
     dev = resolve_device(device)
     fp32_policy()
+    if _sparse.is_sparse_operand(a):
+        return _sparse_randomized_svd(_sparse.operand_to(a, dev), rank, n_iter,
+                                      qr_method, omega, generator, dev)
     a = torch.as_tensor(a, dtype=torch.float32, device=dev)
     b, m, n = a.shape
     r = min(rank, m, n)
@@ -107,6 +133,52 @@ def randomized_svd(a, rank: int, n_iter: int = 4, qr_method: str = "qr",
     proj = q.mT @ a                                      # (B, r, N)
     ub, s, vt = torch.linalg.svd(proj, full_matrices=False)
     return q @ ub, s, vt
+
+
+def _sparse_randomized_svd(a, rank, n_iter, qr_method, omega, generator, dev):
+    """:func:`randomized_svd` of one sparse operand; outputs carry ``B = 1``.
+
+    The sketch is orthonormalized before the first product (same span), as
+    in the reference. A tiled operand iterates the ``(N, r)`` sketch through
+    ``A.T (A X)`` (``ops.spmm_ata``; under CholeskyQR the step also returns
+    the Gram) and maps through ``A`` once at the end; the other forms keep
+    the two-sided iteration. Both apply the same polynomial of ``A``.
+    """
+    m, n = a.shape
+    r = min(rank, m, n)
+    orth = _cholesky_orth if qr_method == "cholesky" else _qr_orth
+    if _sparse.is_tiled(a):
+        matvec = lambda x: ops.spmm_tiled(a, x)
+        rmatvec = lambda x: ops.spmm_tiled(a, x, transpose=True)
+        if qr_method == "cholesky":
+            ata_step = lambda x: _orth_from_gram(*ops.spmm_ata(a, x, with_gram=True))
+        else:
+            ata_step = lambda x: orth(ops.spmm_ata(a, x))
+    elif _sparse.is_ell(a):
+        matvec = lambda x: _sparse.ell_matvec(a, x)
+        rmatvec = lambda x: _sparse.ell_rmatvec(a, x)
+        ata_step = None
+    else:
+        matvec = lambda x: ops.spmm(a, x)
+        rmatvec = lambda x: ops.spmm(a, x, transpose=True)
+        ata_step = None
+    if omega is None:
+        gen = generator if generator is not None else seeded_generator(dev, 0)
+        omega = torch.randn((n, r), generator=gen, dtype=torch.float32, device=dev)
+    else:
+        omega = torch.as_tensor(omega, dtype=torch.float32, device=dev).reshape(n, r)
+    x = orth(omega)
+    if ata_step is not None:
+        for _ in range(n_iter):
+            x = ata_step(x)                              # (N, r)
+        q = orth(matvec(x))                              # (M, r)
+    else:
+        q = orth(matvec(x))
+        for _ in range(n_iter):
+            q = orth(matvec(orth(rmatvec(q))))
+    proj = rmatvec(q).T                                  # (r, N)
+    ub, s, vt = torch.linalg.svd(proj, full_matrices=False)
+    return (q @ ub)[None], s[None], vt[None]
 
 
 def exact_svd(a, rank: int, device: str | torch.device = "cuda"):
@@ -134,7 +206,8 @@ def scc(
     device: str | torch.device = "cuda",
     timer=no_timer,
 ) -> SCCResult:
-    """Spectral co-clustering of every block of ``a (B, M, N)``.
+    """Spectral co-clustering of every block of ``a (B, M, N)``, or of one
+    sparse operand (results with ``B = 1``).
 
     When ``n_col_clusters == n_row_clusters`` rows and columns are clustered
     jointly in the stacked ``Z`` space (Dhillon's algorithm); otherwise they
@@ -148,6 +221,10 @@ def scc(
     """
     if svd_method not in SVD_METHODS:
         raise ValueError(f"svd_method must be one of {SVD_METHODS}, got {svd_method!r}")
+    if svd_method == "exact" and _sparse.is_sparse_operand(a):
+        raise ValueError(
+            "svd_method='exact' (LAPACK) requires a dense matrix; the sparse "
+            "path supports svd_method='randomized' (SpMM subspace iteration)")
     dev = resolve_device(device)
     fp32_policy()
     gen = generator if generator is not None else seeded_generator(dev, 0)
@@ -159,7 +236,7 @@ def scc(
 
     with timer("normalize"):
         a_n, d1_isqrt, d2_isqrt = normalize_bipartite(a, device=dev)
-    n_rows = a_n.shape[1]
+    n_rows = d1_isqrt.shape[-1]
     with timer("svd"):
         if svd_method == "exact":
             u, _s, vt = exact_svd(a_n, rank=l + 1, device=dev)

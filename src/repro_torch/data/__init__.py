@@ -1,3 +1,3 @@
-from .synthetic import PlantedCoClusters, planted_cocluster_matrix
+from .synthetic import PlantedCoClusters, planted_cocluster_matrix, to_bcoo
 
-__all__ = ["PlantedCoClusters", "planted_cocluster_matrix"]
+__all__ = ["PlantedCoClusters", "planted_cocluster_matrix", "to_bcoo"]

@@ -16,8 +16,11 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["PlantedCoClusters", "planted_cocluster_matrix"]
+from ..device import resolve_device
+
+__all__ = ["PlantedCoClusters", "planted_cocluster_matrix", "to_bcoo"]
 
 
 @dataclasses.dataclass
@@ -86,3 +89,16 @@ def planted_cocluster_matrix(
         d=d,
         density=float((mat != 0).mean()),
     )
+
+
+def to_bcoo(matrix: np.ndarray, device: str | torch.device = "cuda") -> torch.Tensor:
+    """Dense numpy matrix -> coalesced 2-D COO tensor on ``device``: the
+    ``np.nonzero`` triplets in row-major order (sorted and unique), as the
+    reference's ``to_bcoo`` builds its BCOO."""
+    mat = np.asarray(matrix)
+    r, c = np.nonzero(mat)
+    dev = resolve_device(device)
+    indices = torch.from_numpy(np.stack([r, c]).astype(np.int64))
+    values = torch.from_numpy(np.ascontiguousarray(mat[r, c], dtype=np.float32))
+    return torch.sparse_coo_tensor(indices, values, mat.shape, is_coalesced=True,
+                                   check_invariants=False).to(dev)

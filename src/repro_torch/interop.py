@@ -17,8 +17,10 @@ import torch
 
 from .core.lamc import LAMCResult
 from .core.partition import PartitionPlan
+from .kernels.spmm import BlockSparseMatrix
 
-__all__ = ["Draws", "draws_from_numpy", "plan_from_numpy", "result_to_numpy"]
+__all__ = ["Draws", "draws_from_numpy", "plan_from_numpy", "result_to_numpy",
+           "coo_from_numpy", "block_sparse_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,3 +96,31 @@ def result_to_numpy(result: LAMCResult) -> dict:
         else:
             out[name] = None if v is None else v.detach().cpu().numpy()
     return out
+
+
+def coo_from_numpy(indices, data, shape) -> torch.Tensor:
+    """A coalesced COO tensor (CPU) from a BCOO's numpy ``indices (nnz, 2)``,
+    ``data (nnz,)`` and ``shape``. Raises unless the indices are sorted
+    row-major and unique, the reference's unique-indices contract."""
+    idx = np.asarray(indices).astype(np.int64).reshape(-1, 2)
+    lin = idx[:, 0] * int(shape[1]) + idx[:, 1]
+    if lin.size and not bool(np.all(np.diff(lin) > 0)):
+        raise ValueError("indices must be sorted row-major and unique")
+    return torch.sparse_coo_tensor(
+        torch.from_numpy(np.ascontiguousarray(idx.T)),
+        torch.from_numpy(np.array(data, dtype=np.float32)),
+        tuple(int(s) for s in shape), is_coalesced=True, check_invariants=False)
+
+
+def block_sparse_from_numpy(fields) -> BlockSparseMatrix:
+    """A port ``BlockSparseMatrix`` (CPU) from any object carrying the
+    reference's fields (``blocks``, ``block_rows``, ``block_cols``,
+    ``t_order``, ``shape``, optional ``row_scale`` / ``col_scale``)."""
+    f32 = lambda v: None if v is None else torch.from_numpy(
+        np.array(v, dtype=np.float32))
+    i32 = lambda v: torch.from_numpy(np.array(v, dtype=np.int32))
+    return BlockSparseMatrix(
+        f32(fields.blocks), i32(fields.block_rows), i32(fields.block_cols),
+        i32(fields.t_order), tuple(fields.shape),
+        row_scale=f32(getattr(fields, "row_scale", None)),
+        col_scale=f32(getattr(fields, "col_scale", None)))

@@ -37,6 +37,15 @@ _SIGNATURES = {
         "kmeans_update_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
                                    _P, _P, _P, _P]),
     },
+    "spmm": {
+        "spmm_error_string": (ctypes.c_char_p, [_I]),
+        "spmm_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _I,
+                          _I, _P, _P]),
+        "spmm_t_f32": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
+                            _I, _I, _P, _P]),
+        "spmm_ata_f32": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
+                              _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]),
+    },
 }
 
 

@@ -5,8 +5,11 @@ cannot); a CPU tensor takes the plain version in ``ref.py``. There is no
 switch that sends CUDA tensors to the plain version and no fallback on
 error, so a run on the card either went through the kernels or failed.
 
-Every operand is batched over a leading block dimension ``B`` — the port's
-form of the reference's ``vmap`` over the block stack.
+The k-means and scale operands are batched over a leading block dimension
+``B`` — the port's form of the reference's ``vmap`` over the block stack.
+The SpMM family takes one tile-level sparse matrix
+(``spmm.BlockSparseMatrix``); ``spmm`` and ``sddmm`` on a COO tensor have
+no TPU kernel in the reference either and stay plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,12 +20,17 @@ from . import bipartite_normalize as _scale
 from . import kmeans_assign as _assign
 from . import kmeans_update as _update
 from . import ref
+from . import spmm as _spmm
 
-__all__ = ["kmeans_assign", "kmeans_update", "bipartite_normalize",
+__all__ = ["kmeans_assign", "kmeans_update", "bipartite_normalize", "spmm",
+           "sddmm", "spmm_tiled", "spmm_ata", "tiled_scale_fusion",
            "launch_counts", "reset_launch_counts"]
 
-_KERNELS = {"kmeans_update": _update, "kmeans_assign": _assign,
-            "scale_apply": _scale}
+# Kernel name -> (module holding its counter, counter key or None for the
+# module's ``launches`` integer).
+_KERNELS = {"kmeans_update": (_update, None), "kmeans_assign": (_assign, None),
+            "scale_apply": (_scale, None), "spmm": (_spmm, "spmm"),
+            "spmm_t": (_spmm, "spmm_t"), "spmm_ata": (_spmm, "spmm_ata")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -63,11 +71,57 @@ def bipartite_normalize(a: torch.Tensor, eps: float = 1e-8):
     return ref.scale_apply_ref(a, s1, s2), s1, s2
 
 
+def spmm(a: torch.Tensor, b: torch.Tensor, *, transpose: bool = False):
+    """``A @ b`` (or ``A.T @ b``) for a coalesced COO tensor ``a``: gather of
+    the RHS rows and a scatter-add over the output axis, O(nnz * r)."""
+    idx = a.indices()
+    rows, cols = (idx[1], idx[0]) if transpose else (idx[0], idx[1])
+    n_out = a.shape[1] if transpose else a.shape[0]
+    return ref.spmm_ref(a.values(), rows, cols, n_out, b)
+
+
+def sddmm(x: torch.Tensor, y: torch.Tensor, indices: torch.Tensor):
+    """Values of ``x @ y.T`` at ``indices (2, nnz)`` (a COO tensor's
+    ``indices()``)."""
+    return ref.sddmm_ref(x, y, indices[0], indices[1])
+
+
+def tiled_scale_fusion(a: _spmm.BlockSparseMatrix) -> bool:
+    """Whether pending diagonal scales stay lazy on ``a``: on the card the
+    SpMM kernels apply them to each tile as it is read; on the CPU the
+    plain products would re-apply them on every call, so they are folded
+    into the payloads once."""
+    return _on_cuda(a.blocks)
+
+
+def spmm_tiled(a: _spmm.BlockSparseMatrix, b: torch.Tensor, *,
+               transpose: bool = False) -> torch.Tensor:
+    """``A @ b`` (or ``A.T @ b``) with ``A`` pre-tiled, ``b (K, r)`` (or
+    ``(M, r)``); any RHS width."""
+    if _on_cuda(b):
+        b = b.contiguous()
+        return _spmm.spmm_t(a, b) if transpose else _spmm.spmm(a, b)
+    return ref.spmm_tiled_ref(a, b, transpose=transpose)
+
+
+def spmm_ata(a: _spmm.BlockSparseMatrix, x: torch.Tensor, *,
+             with_gram: bool = False):
+    """The normal-equations step ``z = A.T @ (A @ x)``; with ``with_gram``
+    returns ``(z, z.T @ z)``, the Gram formed by the kernel on the card."""
+    if _on_cuda(x):
+        return _spmm.spmm_ata(a, x.contiguous(), with_gram=with_gram)
+    return ref.spmm_ata_ref(a, x, with_gram=with_gram)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: mod.launches if key is None else mod.launches[key]
+            for name, (mod, key) in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, key in _KERNELS.values():
+        if key is None:
+            mod.launches = 0
+        else:
+            mod.launches[key] = 0

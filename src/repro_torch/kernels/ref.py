@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
-Each function computes what its hand-written kernel computes, batched over a
-leading block dimension ``B``. ``ops.py`` runs them for tensors that lie on
+Each function computes what its hand-written kernel computes: the k-means and
+scale kernels batched over a leading block dimension ``B``, the SpMM family
+on one tile-level sparse matrix. ``ops.py`` runs them for tensors that lie on
 the CPU; on the card they are the oracle the tests and ``chip_smoke.py``
 hold the kernels against. They mirror the reference package's
 ``kernels/ref.py`` oracles.
@@ -12,7 +13,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["kmeans_assign_ref", "kmeans_update_ref", "scale_apply_ref",
-           "bipartite_normalize_ref"]
+           "bipartite_normalize_ref", "spmm_ref", "spmm_block_ref", "sddmm_ref",
+           "spmm_tiled_ref", "spmm_ata_ref"]
 
 
 def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor):
@@ -60,3 +62,71 @@ def bipartite_normalize_ref(a: torch.Tensor, d1: torch.Tensor,
     s1 = torch.rsqrt(torch.clamp_min(d1, eps))
     s2 = torch.rsqrt(torch.clamp_min(d2, eps))
     return scale_apply_ref(a, s1, s2)
+
+
+def spmm_ref(data: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
+             n_out: int, b: torch.Tensor) -> torch.Tensor:
+    """Element-level SpMM: ``out[rows[e]] += data[e] * b[cols[e]]``.
+
+    ``(data, rows, cols)`` are the COO triplets of a sparse ``A`` whose output
+    axis has ``n_out`` entries; ``A.T @ b`` is the same call with ``rows`` and
+    ``cols`` swapped.
+    """
+    contrib = data.to(torch.float32)[:, None] * b.to(torch.float32)[cols]
+    out = torch.zeros((n_out, b.shape[1]), dtype=torch.float32, device=b.device)
+    return out.index_add_(0, rows, contrib)
+
+
+def spmm_block_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
+                   block_cols: torch.Tensor, n_tile_rows: int, n_tile_cols: int,
+                   b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """Tile-level SpMM: one batched tile product and a tile segment sum.
+
+    ``b`` must be padded to the tile grid on its contracted axis
+    (``n_tile_cols * bk`` rows, or ``n_tile_rows * bm`` when ``transpose``);
+    the output covers the whole padded grid of the other axis.
+    """
+    _g, bm, bk = blocks.shape
+    bf = b.to(torch.float32)
+    rows, cols = block_rows.long(), block_cols.long()
+    if transpose:
+        tiles = bf.reshape(n_tile_rows, bm, -1)
+        contrib = torch.einsum("gab,gar->gbr", blocks, tiles[rows])
+        out = torch.zeros((n_tile_cols, bk, bf.shape[1]), dtype=torch.float32,
+                          device=b.device).index_add_(0, cols, contrib)
+        return out.reshape(n_tile_cols * bk, -1)
+    tiles = bf.reshape(n_tile_cols, bk, -1)
+    contrib = torch.einsum("gab,gbr->gar", blocks, tiles[cols])
+    out = torch.zeros((n_tile_rows, bm, bf.shape[1]), dtype=torch.float32,
+                      device=b.device).index_add_(0, rows, contrib)
+    return out.reshape(n_tile_rows * bm, -1)
+
+
+def sddmm_ref(x: torch.Tensor, y: torch.Tensor, rows: torch.Tensor,
+              cols: torch.Tensor) -> torch.Tensor:
+    """Values of ``x @ y.T`` at ``(rows, cols)``: ``(nnz,)``, never the
+    dense product."""
+    return torch.sum(x.to(torch.float32)[rows] * y.to(torch.float32)[cols], dim=-1)
+
+
+def spmm_tiled_ref(a, b: torch.Tensor, transpose: bool = False) -> torch.Tensor:
+    """``A @ b`` (or ``A.T @ b``) for a ``kernels.spmm.BlockSparseMatrix``:
+    pending scales materialized, ``b`` zero-padded to the tile grid, the
+    padded output sliced off."""
+    a = a.materialize_scales()
+    m, k = a.shape
+    bm, bk = a.tile_shape
+    n_tr, n_tc = a.n_tiles
+    pad = n_tr * bm - m if transpose else n_tc * bk - k
+    bp = torch.nn.functional.pad(b.to(torch.float32), (0, 0, 0, pad))
+    out = spmm_block_ref(a.blocks, a.block_rows, a.block_cols, n_tr, n_tc, bp,
+                         transpose=transpose)
+    return out[: k if transpose else m]
+
+
+def spmm_ata_ref(a, x: torch.Tensor, with_gram: bool = False):
+    """``z = A.T @ (A @ x)`` as two tile-level products; with ``with_gram``
+    also ``z.T @ z``. Returns ``z`` or ``(z, gram)``."""
+    a = a.materialize_scales()
+    z = spmm_tiled_ref(a, spmm_tiled_ref(a, x), transpose=True)
+    return (z, z.T @ z) if with_gram else z

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro_torch.core import kmeans, lamc, spectral
+from repro_torch.data import to_bcoo
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -38,6 +39,10 @@ def test_port_file_list_is_complete():
     lambda a: spectral.scc(a[None], 2),
     lambda a: kmeans.kmeans(a[None], 2),
     lambda a: spectral.normalize_bipartite(a[None]),
+    lambda a: to_bcoo(a),
+    lambda a: lamc.lamc_cocluster(to_bcoo(a, "cpu"),
+                                  lamc.LAMCConfig(2, 2, input_format="bcoo")),
+    lambda a: spectral.scc(to_bcoo(a, "cpu"), 2),
 ])
 def test_entry_points_default_to_the_card(monkeypatch, call):
     """Without ``device=`` an entry point asks for CUDA; on a machine without

@@ -22,6 +22,7 @@ from repro.data import planted_cocluster_matrix
 from repro_torch import interop
 from repro_torch.core import lamc
 from repro_torch.core.metrics import nmi
+from repro_torch.data import to_bcoo
 
 CPU = "cpu"
 CFG = dict(n_row_clusters=4, n_col_clusters=4)
@@ -115,9 +116,21 @@ def test_exact_svd_atom_runs():
     assert nmi(res.row_labels.numpy(), pc.row_labels) > 0.5
 
 
+@pytest.mark.parametrize("kw", [dict(input_format="bcoo"), dict(spmm_impl="tiled")])
+def test_sparse_options_run(kw):
+    """``input_format="bcoo"`` (a COO input) and the ``spmm_impl`` knob run
+    (they raised ``NotImplementedError`` before the sparse path was ported);
+    on a multi-block plan both give the dense path's labels."""
+    pc = _planted(0)
+    plan = interop.plan_from_numpy(PLAN)
+    a = to_bcoo(pc.matrix, CPU) if kw.get("input_format") == "bcoo" else pc.matrix
+    got = lamc.lamc_cocluster(a, lamc.LAMCConfig(**CFG, **kw), plan=plan, device=CPU)
+    dense = lamc.lamc_cocluster(pc.matrix, lamc.LAMCConfig(**CFG), plan=plan, device=CPU)
+    assert torch.equal(got.row_labels, dense.row_labels)
+    assert torch.equal(got.col_labels, dense.col_labels)
+
+
 @pytest.mark.parametrize("kw,exc", [
-    (dict(input_format="bcoo"), NotImplementedError),
-    (dict(spmm_impl="tiled"), NotImplementedError),
     (dict(atom="nmtf"), NotImplementedError),
     (dict(assignment="soft"), ValueError),
     (dict(assign_impl="triton"), ValueError),
