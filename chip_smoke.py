@@ -34,8 +34,32 @@ Phases, each printing one JSON line:
    with each entry kept with probability 0.1, drawn on the card as a
    coalesced COO tensor, through ``lamc_cocluster(input_format="bcoo")``:
    plan and route, per-phase times, peak memory, NMI/ARI, launch counts.
-9. The card's line from nvidia-smi, the ``kernels`` summary, and last
+9. ``kernel`` (cosine): the two serving scorers at the served model's shape
+   (q = 64 anchors, K = 16, batches of 1, 64 and 1,024 rows, k = 1, 4, 16),
+   at the reference's envelope (q = K = 1024) and at a ragged q = 70,
+   K = 13, with exact ties, against their plain versions, then timed beside
+   their bound, the plain version and the library pair they replace
+   (``torch.matmul`` + ``torch.max`` / ``topk``): ``ms`` is device time per
+   call from CUDA-graph replay (at the served shape a call's host cost
+   exceeds its device time), ``eager_ms`` the time per call launched one by
+   one from Python. One more shape checks ``k_valid`` (padded signature
+   rows that would win are never chosen).
+10. ``parity_serve``: a small model fitted, saved and loaded on the card and
+   on the CPU with the same injected draws; the same request batches get
+   equal labels, and the card's checkpoint loads on the CPU with equal leaf
+   hashes.
+11. ``e2e_serve``: the dense cell's fitted model (phase 5's result, not a
+   second fit) saved, loaded on the card and served: ``serve_lamc.serve`` at
+   row batches 1, 64, 1024 and column batches of 64, top-k and COO requests,
+   a zero-row batch, and an ``AssignService`` with two replicas, 256 mixed
+   requests and one hot swap to a version published through the
+   ``ModelRegistry``. Held-out rows and re-assigned columns must recover the
+   planted and fitted labels (NMI >= 0.8).
+12. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
+
+Phases 9-11 run right after phase 5, while the dense cell's matrix is still
+on the card.
 
 Any failed check or error exits nonzero before the last line. Without a
 CUDA device, or without the repository beside it, the script exits 1.
@@ -78,6 +102,21 @@ SPARSE_RANK = 6                            # l + 1 for k = 16
 SPARSE_KMEANS_SHAPE = (1, 147_456, 5, 16)  # B, P = M + N, D = l, K
 SPMM_RTOL = 1e-5                           # with an absolute floor of 1e-5 * max|plain|
 
+# The served model is the dense cell's: q = signature_dim = 64 anchors and
+# K = 16 clusters on both axes. (P, q, K, k_top) of the cosine kernels: the
+# served batches P = 1, 64, 1024 at k_top = 1, 4, 16; the reference's
+# envelope (src/repro/analysis/vmem.py:209-222); a ragged q and K. All are
+# checked and timed; COSINE_PADDED is checked with k_valid < K.
+COSINE_SHAPES = ([(p, 64, 16, kt) for p in (1, 64, 1024) for kt in (1, 4, 16)]
+                 + [(4096, 1024, 1024, 8), (1024, 70, 13, 13)])
+COSINE_PADDED = (1024, 64, 24, 16)      # 24 signature rows, the first 16 valid
+COSINE_MAIN = {"cosine_assign": (64, 64, 16, 1), "cosine_topk": (64, 64, 16, 4)}
+COSINE_SCORE_RTOL = 1e-5       # of the dot product's scale sum_d |x_d s_kd|
+COSINE_TIE_RTOL = 1e-6         # a label may differ only on a tie this near
+SERVE_ROW_BATCHES = {1: 200, 64: 100, 1024: 40}   # batch rows -> requests
+SERVE_COL_BATCH, SERVE_COL_REQUESTS = 64, 40
+SERVICE_REQUESTS = 256
+
 
 class CheckFailed(Exception):
     pass
@@ -115,6 +154,44 @@ def cuda_time(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_time(fn, iters: int, side) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in
+    one CUDA graph and replayed between CUDA events, so the host's cost of
+    each call (argument checks, allocation, launch) is not in the time.
+    Warm-up and capture run on the stream ``side``; callers pass the same
+    one every time, since cuBLAS keeps a workspace for each stream it has
+    run on."""
+    import torch
+
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    graph.reset()        # release the graph's memory pool before the next phase
+    return start.elapsed_time(end) / (5 * iters)
+
+
+def scratch_dir():
+    """A temporary directory under the checkout's ``build/`` (which git
+    ignores), removed on exit."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    return tempfile.TemporaryDirectory(dir=ROOT / "build")
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -150,10 +227,10 @@ def phase_build():
     from repro_torch.kernels import _build, bipartite_normalize
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         # one nvcc per source, started together
         cuda = {name: pool.submit(lambda n=name: (_build.build(n), time.perf_counter() - t0))
-                for name in ("kmeans", "spmm")}
+                for name in ("kmeans", "spmm", "cosine")}
         # compile the Triton kernel meanwhile, with the divisibility
         # specialization the main path's shapes get (sizes multiple of 16)
         a = torch.ones((1, 64, 256), device="cuda")
@@ -266,7 +343,8 @@ def kmeans_rows(shape, gen) -> dict:
         shape=list(shape),
         ms=cuda_time(lambda: kmeans_assign.kmeans_assign(x, c), 200),
         plain_ms=cuda_time(lambda: ref.kmeans_assign_ref(x, c), 50),
-        bound_ms=bms, bound_by=bby, library_ms=None)
+        bound_ms=bms, bound_by=bby,
+        library_ms=cuda_time(lambda: torch.cdist(x, c).argmin(-1), 50))
     for name in ("kmeans_update", "kmeans_assign"):
         emit("kernel", name=name, **rows[name])
     return rows
@@ -309,13 +387,141 @@ def phase_kernels(gen) -> dict:
     return rows
 
 
-def phase_parity():
-    """A small planted matrix on the card and on the CPU, same draws."""
-    import numpy as np
+def _cosine_inputs(p, q, k, gen):
+    """Random points and unit signatures with an exact duplicate pair (ids 0
+    and k - 1); the first points equal signature 0, so they tie exactly."""
     import torch
+
+    x = torch.randn((p, q), generator=gen, device="cuda")
+    s = torch.randn((k, q), generator=gen, device="cuda")
+    s = s / torch.linalg.vector_norm(s, dim=1, keepdim=True)
+    s[k - 1] = s[0]
+    x[:8] = s[0]
+    return x, s
+
+
+def _cosine_check(x, s, labels, scores, want_labels, want_scores, what):
+    """Scores within COSINE_SCORE_RTOL of the dot product's scale
+    sum_d |x_d s_kd| (the bound its float32 rounding error grows with);
+    labels equal except near ties, whose two plain scores lie within
+    COSINE_TIE_RTOL of that scale. Returns (near ties, max |score err|)."""
+    import torch
+
+    p = x.shape[0]
+    mine, want = labels.long().reshape(p, -1), want_labels.long().reshape(p, -1)
+    full = x @ s.T
+    scale = torch.gather(x.abs() @ s.abs().T, 1, want)
+    err = (scores.reshape(scale.shape) - want_scores.reshape(scale.shape)).abs()
+    check(bool((err <= COSINE_SCORE_RTOL * scale).all()),
+          f"{what}: scores differ from plain beyond {COSINE_SCORE_RTOL} of the dot scale")
+    differ = mine != want
+    gap = (torch.gather(full, 1, mine) - torch.gather(full, 1, want)).abs()
+    check(bool((gap <= COSINE_TIE_RTOL * scale)[differ].all()),
+          f"{what}: a label differs from plain beyond a near tie")
+    return int(differ.sum().item()), err.max().item()
+
+
+def _cosine_padded(gen) -> dict:
+    """k_valid < K: padded signature rows that would win every point are
+    never chosen, and the labels are those of the unpadded signatures."""
+    import torch
+    from repro_torch.kernels import kmeans_assign, ref
+
+    p, q, k, valid = COSINE_PADDED
+    x, s = _cosine_inputs(p, q, valid, gen)
+    pad = torch.cat([s, 10.0 * x[8:8 + k - valid]]).contiguous()
+    got = {"assign": kmeans_assign.cosine_assign(x, pad, valid),
+           "topk": kmeans_assign.cosine_topk(x, pad, valid, valid)}
+    want = {"assign": ref.cosine_assign_ref(x, pad, valid),
+            "topk": ref.cosine_topk_ref(x, pad, valid, valid)}
+    unpadded = kmeans_assign.cosine_topk(x, s, valid)
+    torch.cuda.synchronize()
+    ties = 0
+    for key in got:
+        check(int(got[key][0].max()) < valid, f"cosine_{key}: a masked signature won")
+        ties += _cosine_check(x, s, *got[key], *want[key], f"cosine_{key} k_valid")[0]
+    check(torch.equal(got["topk"][0], unpadded[0]),
+          "cosine_topk with k_valid differs from the unpadded signatures")
+    return dict(shape=dict(P=p, q=q, K=k, k_valid=valid), near_ties=ties)
+
+
+def phase_kernels_cosine(gen) -> dict:
+    """The serving scorers against their plain versions at the served, the
+    envelope and a ragged shape, then timed beside bound, plain and
+    library; one more shape checks k_valid."""
+    import torch
+    from repro_torch.kernels import kmeans_assign, ref
+
+    rows = {name: dict(route="cuda", source="src/repro_torch/kernels/csrc/cosine.cu",
+                       replaces=f"src/repro/kernels/kmeans_assign.py:{line}",
+                       max_abs_err=0.0, near_ties=0, at_shapes=[])
+            for name, line in (("cosine_assign", 168), ("cosine_topk", 132))}
+    assign_done = set()
+    side = torch.cuda.Stream()
+    for shape in COSINE_SHAPES:
+        p, q, k, k_top = shape
+        x, s = _cosine_inputs(p, q, k, gen)
+        labels, score = kmeans_assign.cosine_assign(x, s)
+        top, top_s = kmeans_assign.cosine_topk(x, s, k_top)
+        rl, rs = ref.cosine_assign_ref(x, s)
+        tl, ts = ref.cosine_topk_ref(x, s, k_top)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(top[:, 0], labels) and torch.equal(top_s[:, 0], score)),
+              f"cosine_topk[:, 0] is not cosine_assign bit for bit at {shape}")
+        check(bool((labels[:8] == 0).all()), f"exact ties did not go to the lower id at {shape}")
+        check(bool((top_s[:, :-1] >= top_s[:, 1:]).all()),
+              f"cosine_topk scores do not descend at {shape}")
+        again = kmeans_assign.cosine_topk(x, s, k_top)
+        check(bool(torch.equal(again[0], top) and torch.equal(again[1], top_s)),
+              f"cosine_topk is not deterministic at {shape}")
+        iters = 20 if q * k > 100_000 else 200
+        for name, got, want, kt in (("cosine_assign", (labels, score), (rl, rs), 1),
+                                    ("cosine_topk", (top, top_s), (tl, ts), k_top)):
+            if name == "cosine_assign":
+                if (p, q, k) in assign_done:
+                    continue
+                assign_done.add((p, q, k))
+                kernel = lambda: kmeans_assign.cosine_assign(x, s)
+                plain = lambda: ref.cosine_assign_ref(x, s)
+                # the library pair: the product, then argmax with its score
+                library = lambda: torch.max(torch.matmul(x, s.T), dim=1)
+            else:
+                kernel = lambda: kmeans_assign.cosine_topk(x, s, kt)
+                plain = lambda: ref.cosine_topk_ref(x, s, kt)
+                library = lambda: torch.topk(torch.matmul(x, s.T), kt, dim=1)
+            ties, err = _cosine_check(x, s, *got, *want, f"{name} {shape}")
+            row = rows[name]
+            row["near_ties"] += ties
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            # bound: x and the signatures read once, labels and scores
+            # written once; 2 P q K flops
+            bms, bby = bound(4.0 * (p * q + k * q) + 8.0 * p * kt, 2.0 * p * q * k)
+            row["at_shapes"].append(dict(
+                shape=dict(P=p, q=q, K=k, k_top=kt), near_ties=ties, max_abs_err=err,
+                ms=graph_time(kernel, iters, side), plain_ms=graph_time(plain, iters, side),
+                library_ms=graph_time(library, iters, side), bound_ms=bms, bound_by=bby,
+                eager_ms=cuda_time(kernel, iters), eager_plain_ms=cuda_time(plain, iters),
+                eager_library_ms=cuda_time(library, iters)))
+        del x, s
+    padded = _cosine_padded(gen)
+    for name, row in rows.items():
+        p, q, k, kt = COSINE_MAIN[name]
+        main = next(e for e in row["at_shapes"]
+                    if e["shape"] == dict(P=p, q=q, K=k, k_top=kt))
+        row["near_ties"] += padded["near_ties"]
+        row.update(shape=main["shape"], k_valid_check=padded["shape"],
+                   **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "eager_ms")})
+        emit("kernel", name=name, **row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _small_case():
+    """A 512 x 384 planted matrix, a 2 x 2 plan and fixed random draws."""
+    import numpy as np
     from repro_torch import interop
     from repro_torch.core import lamc
-    from repro_torch.core.metrics import nmi
     from repro_torch.data import planted_cocluster_matrix
 
     pc = planted_cocluster_matrix(np.random.default_rng(0), 512, 384, k=4)
@@ -330,7 +536,16 @@ def phase_parity():
                              for _ in range(2)]),
         row_merge_seeds=np.stack([rng.permutation(32)[:4] for _ in range(4)]),
         col_merge_seeds=np.stack([rng.permutation(32)[:4] for _ in range(4)]))
-    cfg = lamc.LAMCConfig(4, 4, assign_impl="pallas")
+    return pc, plan, draws, lamc.LAMCConfig(4, 4, assign_impl="pallas")
+
+
+def phase_parity():
+    """A small planted matrix on the card and on the CPU, same draws."""
+    import torch
+    from repro_torch.core import lamc
+    from repro_torch.core.metrics import nmi
+
+    pc, plan, draws, cfg = _small_case()
     out = {dev: lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws, device=dev)
            for dev in ("cuda", "cpu")}
     torch.cuda.synchronize()
@@ -343,6 +558,44 @@ def phase_parity():
         check(scores[f"{side}_nmi_card_vs_cpu"] >= 0.95,
               f"{side} labels on the card disagree with the CPU path")
     emit("parity", **scores)
+
+
+def phase_parity_serve():
+    """The small case fitted, saved and loaded on the card and on the CPU:
+    the same request batches get equal labels, and the checkpoint the card
+    wrote loads on the CPU with the leaf hashes the CPU writes."""
+    import numpy as np
+    import torch
+    from repro_torch import checkpoint, streaming
+    from repro_torch.core import lamc
+
+    pc, plan, draws, cfg = _small_case()
+    rng = np.random.default_rng(2)
+    rows = rng.normal(size=(300, 384)).astype(np.float32) + pc.matrix[:300]
+    cols = rng.normal(size=(200, 512)).astype(np.float32) + pc.matrix.T[:200]
+    labels = {}
+    with scratch_dir() as tmp:
+        for dev in ("cuda", "cpu"):
+            res = lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws, device=dev)
+            streaming.save_model(f"{tmp}/{dev}", streaming.model_from_result(res),
+                                 cfg=cfg, plan=res.plan)
+            model, _ = streaming.load_model(f"{tmp}/{dev}", device=dev)
+            labels[dev] = [streaming.assign_rows(model, rows).labels.cpu(),
+                           streaming.assign_cols(model, cols).labels.cpu(),
+                           streaming.assign_rows_topk(model, rows, k=3).labels.cpu(),
+                           streaming.assign_cols_topk(model, cols, k=4).labels.cpu()]
+        torch.cuda.synchronize()
+        host, _ = streaming.load_model(f"{tmp}/cuda", device="cpu")
+        streaming.save_model(f"{tmp}/again", host, cfg=cfg, plan=plan)
+        card_leaves = checkpoint.read_manifest(f"{tmp}/cuda", 0)["leaves"]
+        again_leaves = checkpoint.read_manifest(f"{tmp}/again", 0)["leaves"]
+    equal = [bool(torch.equal(a, b)) for a, b in zip(labels["cuda"], labels["cpu"])]
+    emit("parity_serve", labels_equal=dict(zip(("rows", "cols", "rows_top3", "cols_top4"),
+                                               equal)),
+         leaf_hashes_equal=card_leaves == again_leaves)
+    check(all(equal), f"serving labels on the card differ from the CPU path: {equal}")
+    check(card_leaves == again_leaves,
+          "the card's checkpoint does not load on the CPU with equal leaf hashes")
 
 
 def planted_on_card(rows: int, cols: int, k: int, gen):
@@ -360,10 +613,10 @@ def planted_on_card(rows: int, cols: int, k: int, gen):
     chunk = 8192
     for i in range(0, rows, chunk):
         a[i : i + chunk] += mu[row_labels[i : i + chunk]][:, col_labels]
-    return a, row_labels, col_labels
+    return a, row_labels, col_labels, mu
 
 
-def phase_e2e(seed: int) -> dict:
+def phase_e2e(seed: int):
     import torch
     from repro_torch.core import lamc
     from repro_torch.core.metrics import ari, nmi
@@ -371,11 +624,11 @@ def phase_e2e(seed: int) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     # warm-up at a small size: library handles and allocator, not timed
-    wa, _, _ = planted_on_card(8192, 2048, 4, gen)
+    wa, _, _, _ = planted_on_card(8192, 2048, 4, gen)
     lamc.lamc_cocluster(wa, lamc.LAMCConfig(4, 4, assign_impl="pallas"),
                         plan=lamc.partition.PartitionPlan(8192, 2048, 2, 2, 4096, 1024, 1))
     del wa
-    a, row_truth, col_truth = planted_on_card(E2E_ROWS, E2E_COLS, E2E_K, gen)
+    a, row_truth, col_truth, mu = planted_on_card(E2E_ROWS, E2E_COLS, E2E_K, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     timer = PhaseTimer()
@@ -400,12 +653,175 @@ def phase_e2e(seed: int) -> dict:
           f"plan resolved to {plan}, expected {E2E_PLAN}")
     want = {"kmeans_update": plan.t_p * cfg.kmeans_iters,
             "kmeans_assign": plan.t_p, "scale_apply": plan.t_p,
-            "spmm": 0, "spmm_t": 0, "spmm_ata": 0}
+            "spmm": 0, "spmm_t": 0, "spmm_ata": 0, "cosine_assign": 0, "cosine_topk": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
     check(row_pred.shape == (E2E_ROWS,) and col_pred.shape == (E2E_COLS,),
           "label shapes")
     check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
           f"NMI against the planted truth below 0.8: {scores}")
+    return counts, dict(result=res, config=cfg, matrix=a, col_truth=col_truth, mu=mu)
+
+
+def _service_request(i: int, rows_np, cols_np):
+    """Request ``i`` of the mixed service stream: 16 rows (k = 1), 4 columns
+    (k = 1) or 8 rows (top 4), in turn."""
+    kind = i % 3
+    if kind == 0:
+        return "rows", 1, rows_np[(16 * i) % 4096:][:16]
+    if kind == 1:
+        return "cols", 1, cols_np[(4 * i) % 1024:][:4]
+    return "rows", 4, rows_np[(8 * i) % 4096:][:8]
+
+
+def phase_e2e_serve(cell: dict, seed: int, smi: str) -> dict:
+    """Serve the dense cell's fitted model on the card (see the module doc)."""
+    import threading
+
+    import torch
+    from repro_torch import streaming
+    from repro_torch.core.metrics import nmi
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_lamc
+
+    res, cfg, a = cell["result"], cell["config"], cell["matrix"]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    # held-out rows drawn from the cell's own block means and column truth,
+    # and 1,024 columns of the fitted matrix as column requests
+    held_truth = torch.randint(0, E2E_K, (4096,), generator=gen, device="cuda")
+    held = torch.randn((4096, E2E_COLS), generator=gen, device="cuda")
+    held += cell["mu"][held_truth][:, cell["col_truth"]]
+    pick = torch.randperm(E2E_COLS, generator=gen, device="cuda")[:1024]
+    cols = a[:, pick].T.contiguous()
+    keep = torch.rand((1024, E2E_COLS), generator=gen, device="cuda") < SPARSE_DENSITY
+    sparse_rows = torch.where(keep, held[:1024], 0.0)
+    coo = sparse_rows.to_sparse().coalesce()
+    rows_np, cols_np = held.cpu().numpy(), cols.cpu().numpy()
+    name = "lamc_dense_131k"
+    calls = {"cosine_assign": 0, "cosine_topk": 0}
+    lock = threading.Lock()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    ops.reset_launch_counts()
+    with scratch_dir() as tmp:
+        path = f"{tmp}/model"
+        streaming.save_model(path, streaming.model_from_result(res), cfg=cfg, plan=res.plan)
+        model, meta = streaming.load_model(path)
+        latency = {}
+        streams = [("rows", b, n) for b, n in SERVE_ROW_BATCHES.items()]
+        streams.append(("cols", SERVE_COL_BATCH, SERVE_COL_REQUESTS))
+        for axis, batch, requests in streams:
+            out = serve_lamc.serve(path, batch=batch, requests=requests, warmup=3,
+                                   axis=axis, seed=seed, adversarial=3 if axis == "rows" else 0)
+            calls["cosine_assign"] += 3 + requests
+            check(out[f"serve_assign_{axis}_rows"] == batch * requests,
+                  f"serve {axis} b{batch}: rows served {out}")
+            check(out[f"serve_assign_{axis}_errors"] == (3 if axis == "rows" else 0),
+                  f"serve {axis} b{batch}: errors {out}")
+            latency[f"{axis}_b{batch}"] = {
+                key.split(f"serve_assign_{axis}_")[1]: value for key, value in out.items()
+                if key.startswith("serve_assign_")}
+        out = serve_lamc.serve_service(path, batch=64, requests=32, warmup=3, replicas=2)
+        calls["cosine_assign"] += 1 + out["_batches"]     # its warm-up and its batches
+        check(out["serve_svc_rows_rows"] == 32 * 16, f"serve_service: {out}")
+        latency["service_rows_b64"] = {key.split("serve_svc_rows_")[1]: value
+                                       for key, value in out.items()
+                                       if key.startswith("serve_svc_rows_")}
+        direct = dict(rows=streaming.assign_rows(model, held),
+                      cols=streaming.assign_cols(model, cols),
+                      rows_top4=streaming.assign_rows_topk(model, held, k=4),
+                      cols_top16=streaming.assign_cols_topk(model, cols, k=16),
+                      coo=streaming.assign_rows(model, coo),
+                      coo_dense=streaming.assign_rows(model, sparse_rows),
+                      empty=streaming.assign_rows(model, torch.zeros((0, E2E_COLS),
+                                                                     device="cuda")))
+        calls["cosine_assign"] += 4
+        calls["cosine_topk"] += 2
+
+        registry = streaming.ModelRegistry(f"{tmp}/registry")
+        v1 = registry.publish(name, model, cfg=cfg)
+        model2 = model._replace(row_sigs=torch.roll(model.row_sigs, 1, 0),
+                                col_sigs=torch.roll(model.col_sigs, 1, 0))
+        v2 = registry.publish(name, model2, cfg=cfg)
+        first, _ = registry.load(name, v1.version)
+        config = streaming.ServeConfig(batch=64, replicas=2)
+        with streaming.AssignService(first, version=v1.version, config=config) as svc:
+            calls["cosine_assign"] += 1                  # warm-up of (rows, 1)
+            score = svc._score_batch
+
+            def counted(key, reqs):
+                with lock:
+                    calls["cosine_topk" if key[1] > 1 else "cosine_assign"] += 1
+                score(key, reqs)
+
+            def submit(i):
+                axis, k, x = _service_request(i, rows_np, cols_np)
+                return svc.submit(x, axis=axis, k=k)
+
+            svc._score_batch = counted
+            t0 = time.perf_counter()
+            half = SERVICE_REQUESTS // 2
+            tickets = [submit(i) for i in range(half)]
+            for t in tickets[:3]:             # each kind scored: its scorer exists
+                t.result(timeout=120.0)
+            swap = svc.swap_async(lambda: registry.load(name, v2.version)[0], v2.version)
+            tickets += [submit(i) for i in range(half, half + half // 2)]
+            swapped = swap.result(timeout=120.0)
+            tickets += [submit(i) for i in range(half + half // 2, SERVICE_REQUESTS)]
+            results = [t.result(timeout=120.0) for t in tickets]
+            service_s = time.perf_counter() - t0
+            stats = svc.stats()
+        # the swap warmed the three (axis, k) the old engine had served
+        calls["cosine_assign"] += 2
+        calls["cosine_topk"] += 1
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        check(meta["kind"] == streaming.MODEL_KIND, f"model kind {meta.get('kind')}")
+        check(swapped.ok, f"swap failed: {swapped.detail}")
+        models = {v1.version: first, v2.version: model2}
+        by_version = {v1.version: 0, v2.version: 0}
+        for i, r in enumerate(results):
+            check(r.ok and r.version in models, f"service request {i}: {r.reason} {r.detail}")
+            by_version[r.version] += 1
+            axis, k, x = _service_request(i, rows_np, cols_np)
+            fn = {("rows", True): streaming.assign_rows, ("cols", True): streaming.assign_cols,
+                  ("rows", False): lambda m, v: streaming.assign_rows_topk(m, v, k=k)}
+            want = fn[(axis, k == 1)](models[r.version], x).labels.cpu().numpy()
+            check((r.labels == want).all(), f"service request {i} labels differ from "
+                                            f"a direct call on {r.version}")
+    check(by_version[v2.version] > 0 and by_version[v1.version] > 0,
+          f"the swap was not mid-stream: {by_version}")
+
+    labels = {key: r.labels for key, r in direct.items()}
+    scores = dict(
+        heldout_row_nmi=nmi(labels["rows"].cpu().numpy(), held_truth.cpu().numpy()),
+        col_nmi_vs_fit=nmi(labels["cols"].cpu().numpy(),
+                           res.col_labels[pick].cpu().numpy()))
+    want = {"kmeans_update": 0, "kmeans_assign": 0, "scale_apply": 0, "spmm": 0,
+            "spmm_t": 0, "spmm_ata": 0, **calls}
+    emit("e2e_serve", cell=name, nvidia_smi=smi, model=dict(
+        rows=model.n_rows, cols=model.n_cols, k_row=model.n_row_clusters,
+        k_col=model.n_col_clusters, q_row=int(model.row_sigs.shape[1]),
+        q_col=int(model.col_sigs.shape[1])),
+         latency_us=latency, service=dict(
+             requests=SERVICE_REQUESTS, replicas=2, batch=64, wall_s=service_s,
+             qps_rows=stats["rows_served"] / service_s, p50_request_us=stats["p50_request_us"],
+             p99_request_us=stats["p99_request_us"], batches=stats["batches"],
+             mean_batch_fill_pct=stats["mean_batch_fill_pct"], by_version=by_version),
+         max_memory_allocated_gib=peak, resident_at_start_gib=resident, launches=counts,
+         **scores)
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(scores["heldout_row_nmi"] >= 0.8 and scores["col_nmi_vs_fit"] >= 0.8,
+          f"serving quality below 0.8 NMI: {scores}")
+    check(torch.equal(labels["rows_top4"][:, 0], labels["rows"])
+          and torch.equal(labels["cols_top16"][:, 0], labels["cols"]),
+          "top-k column 0 differs from the k = 1 labels")
+    check(torch.equal(labels["coo"], labels["coo_dense"]),
+          "a COO batch got other labels than its dense twin")
+    check(tuple(labels["empty"].shape) == (0,), "zero-row batch")
     return counts
 
 
@@ -647,7 +1063,8 @@ def phase_e2e_sparse(a, row_truth, col_truth, seed: int) -> dict:
     check(got == SPARSE_PLAN and plan.spmm_route == "tiled",
           f"plan resolved to {plan}, expected {SPARSE_PLAN} route tiled")
     want = {"kmeans_update": cfg.kmeans_iters, "kmeans_assign": 1, "scale_apply": 0,
-            "spmm": 1, "spmm_t": 1, "spmm_ata": cfg.svd_iters}
+            "spmm": 1, "spmm_t": 1, "spmm_ata": cfg.svd_iters, "cosine_assign": 0,
+            "cosine_topk": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
     check(row_pred.shape == (E2E_ROWS,) and col_pred.shape == (E2E_COLS,), "label shapes")
     check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
@@ -682,7 +1099,12 @@ def main() -> int:
         phase_build()
         rows = phase_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
         phase_parity()
-        dense_counts = phase_e2e(args.seed)
+        dense_counts, dense_cell = phase_e2e(args.seed)
+        rows.update(phase_kernels_cosine(
+            torch.Generator(device="cuda").manual_seed(args.seed + 3)))
+        phase_parity_serve()
+        serve_counts = phase_e2e_serve(dense_cell, args.seed, smi)
+        del dense_cell
         torch.cuda.empty_cache()
         gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         cell = planted_sparse_on_card(E2E_ROWS, E2E_COLS, E2E_K, SPARSE_DENSITY, gen)
@@ -694,7 +1116,8 @@ def main() -> int:
         traceback.print_exc()
         return 1
     rows.update(sparse_rows)
-    cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts}
+    cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts,
+             "lamc_dense_131k_serve": serve_counts}
     summary = []
     for name, row in rows.items():
         # launches: per run of the first cell that launches the kernel
@@ -703,7 +1126,8 @@ def main() -> int:
                      launches_by_cell=by_cell, **row)
         if name in sparse_kmeans:
             entry["at_sparse_cell"] = {key: sparse_kmeans[name][key] for key in
-                                       ("shape", "ms", "plain_ms", "bound_ms", "max_abs_err")}
+                                       ("shape", "ms", "plain_ms", "bound_ms", "max_abs_err",
+                                        "library_ms")}
         summary.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

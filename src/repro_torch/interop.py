@@ -17,10 +17,12 @@ import torch
 
 from .core.lamc import LAMCResult
 from .core.partition import PartitionPlan
+from .device import resolve_device
 from .kernels.spmm import BlockSparseMatrix
+from .streaming.model import CoclusterModel
 
 __all__ = ["Draws", "draws_from_numpy", "plan_from_numpy", "result_to_numpy",
-           "coo_from_numpy", "block_sparse_from_numpy"]
+           "coo_from_numpy", "block_sparse_from_numpy", "model_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,3 +126,14 @@ def block_sparse_from_numpy(fields) -> BlockSparseMatrix:
         i32(fields.t_order), tuple(fields.shape),
         row_scale=f32(getattr(fields, "row_scale", None)),
         col_scale=f32(getattr(fields, "col_scale", None)))
+
+
+def model_from_numpy(arrays, device: str | torch.device = "cuda") -> CoclusterModel:
+    """A port ``CoclusterModel`` on ``device`` from a mapping of its fields or
+    any object carrying them (for example the reference's model, whose
+    arrays ``np.asarray`` reads). Dtypes are kept as given."""
+    dev = resolve_device(device)
+    get = arrays.__getitem__ if isinstance(arrays, Mapping) else (
+        lambda name: getattr(arrays, name))
+    return CoclusterModel(*(torch.from_numpy(np.array(get(f))).to(dev)
+                            for f in CoclusterModel._fields))

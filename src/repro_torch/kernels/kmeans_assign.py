@@ -1,25 +1,45 @@
-"""Wrapper of the CUDA k-means assignment kernel (``csrc/kmeans.cu``).
+"""Wrappers of the CUDA assignment kernels: k-means (``csrc/kmeans.cu``) and
+the serving path's cosine scorers (``csrc/cosine.cu``).
 
-Replaces ``kmeans_assign_pallas`` (``src/repro/kernels/kmeans_assign.py:59``):
-nearest-centroid labels and clamped squared distances for a ``(B, P, D)``
-batch of points against ``(B, K, D)`` centroids, in one launch for all
-blocks. The plain version is ``ref.kmeans_assign_ref``; ``ops.kmeans_assign``
-picks between them by the tensor's device.
+``kmeans_assign`` replaces ``kmeans_assign_pallas``
+(``src/repro/kernels/kmeans_assign.py:59``): nearest-centroid labels and
+clamped squared distances for a ``(B, P, D)`` batch of points against
+``(B, K, D)`` centroids, in one launch for all blocks.
+
+``cosine_assign`` and ``cosine_topk`` replace ``cosine_assign_pallas``
+(``:168``) and ``cosine_topk_pallas`` (``:132``): the best (or the ``k``
+best, descending) of ``x (P, q) @ signatures (K, q).T`` per point, ties to
+the lower id. ``P``, ``q``, ``K`` and ``k`` are run-time values; nothing is
+padded. The reference's ``k_valid`` (signature rows at and past it are
+masked to -inf) is passed to the kernel as its signature count, so those
+rows are never read.
+
+The plain versions are in ``ref``; ``ops`` picks between kernel and plain
+version by the tensor's device.
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 
 from . import _build
 
-__all__ = ["kmeans_assign", "check_points", "MAX_D", "MAX_K"]
+__all__ = ["kmeans_assign", "check_points", "MAX_D", "MAX_K", "cosine_assign",
+           "cosine_topk", "check_scoring"]
 
 MAX_D = 64
 MAX_K = 64
 
-#: Launches of the kernel since the counter was last set to 0.
+#: Launches of the k-means assignment kernel since the counter was last set to 0.
 launches = 0
+
+#: Launches of the cosine scorers since the counters were last set to 0. The
+#: serving path launches them from several worker threads, so the counts
+#: are updated under a lock.
+cosine_launches = {"cosine_assign": 0, "cosine_topk": 0}
+_cosine_lock = threading.Lock()
 
 
 def check_points(x: torch.Tensor, centroids: torch.Tensor,
@@ -69,3 +89,70 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     raise_on_error(lib, err, "kmeans_assign")
     launches += 1
     return labels, d2
+
+
+def check_scoring(x: torch.Tensor, signatures: torch.Tensor, k: int,
+                  k_valid: int) -> None:
+    """Raise unless the operands are what the CUDA cosine scorers take (the
+    signature-count limit is checked against the built library)."""
+    if x.ndim != 2 or signatures.ndim != 2 or x.shape[1] != signatures.shape[1]:
+        raise ValueError(f"expected x (P, q) and signatures (K, q), got "
+                         f"{tuple(x.shape)} and {tuple(signatures.shape)}")
+    (p, q), n_sigs = x.shape, signatures.shape[0]
+    if not (q >= 1 and 1 <= k <= k_valid <= n_sigs and p < 2**31):
+        raise ValueError(f"the cosine kernels take q >= 1, 1 <= k <= k_valid <= K "
+                         f"and P < 2**31; got P={p} q={q} K={n_sigs} "
+                         f"k_valid={k_valid} k={k}")
+    for name, t in (("x", x), ("signatures", signatures)):
+        if not t.is_cuda or t.device != x.device:
+            raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous float32")
+
+
+def _score(x: torch.Tensor, signatures: torch.Tensor, k: int, k_valid: int | None,
+           name: str):
+    k_valid = signatures.shape[0] if k_valid is None else k_valid
+    check_scoring(x, signatures, k, k_valid)
+    lib = _build.load("cosine")
+    max_k = lib.cosine_max_k()
+    if k_valid > max_k:
+        raise ValueError(f"the cosine kernels take at most K = {max_k} signatures "
+                         f"(the score tile must fit in shared memory); got "
+                         f"K={k_valid}")
+    p, q = x.shape
+    shape = (p,) if name == "cosine_assign" else (p, k)
+    labels = torch.empty(shape, dtype=torch.int32, device=x.device)
+    scores = torch.empty(shape, dtype=torch.float32, device=x.device)
+    if p == 0:
+        return labels, scores
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the kernel reads only the first k_valid signature rows: the rows the
+    # reference masks to -inf are never scored
+    if name == "cosine_assign":
+        err = lib.cosine_assign_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid,
+                                    labels.data_ptr(), scores.data_ptr(), stream)
+    else:
+        err = lib.cosine_topk_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid, k,
+                                  labels.data_ptr(), scores.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.cosine_error_string(err).decode()}")
+    with _cosine_lock:
+        cosine_launches[name] += 1
+    return labels, scores
+
+
+def cosine_assign(x: torch.Tensor, signatures: torch.Tensor, k_valid: int | None = None):
+    """``(labels (P,) int32, scores (P,))`` computed by the CUDA kernel over
+    the first ``k_valid`` signatures (all by default); a zero-row ``x``
+    returns empty tensors without a launch."""
+    return _score(x, signatures, 1, k_valid, "cosine_assign")
+
+
+def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
+                k_valid: int | None = None):
+    """``(labels (P, k) int32, scores (P, k))``, descending, computed by the
+    CUDA kernel over the first ``k_valid`` signatures (all by default); a
+    zero-row ``x`` returns empty tensors without a launch."""
+    return _score(x, signatures, k, k_valid, "cosine_topk")

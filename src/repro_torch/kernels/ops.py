@@ -7,6 +7,7 @@ error, so a run on the card either went through the kernels or failed.
 
 The k-means and scale operands are batched over a leading block dimension
 ``B`` — the port's form of the reference's ``vmap`` over the block stack.
+The cosine scorers take one ``(P, q)`` batch of requests.
 The SpMM family takes one tile-level sparse matrix
 (``spmm.BlockSparseMatrix``); ``spmm`` and ``sddmm`` on a COO tensor have
 no TPU kernel in the reference either and stay plain PyTorch.
@@ -22,15 +23,20 @@ from . import kmeans_update as _update
 from . import ref
 from . import spmm as _spmm
 
-__all__ = ["kmeans_assign", "kmeans_update", "bipartite_normalize", "spmm",
-           "sddmm", "spmm_tiled", "spmm_ata", "tiled_scale_fusion",
-           "launch_counts", "reset_launch_counts"]
+__all__ = ["kmeans_assign", "kmeans_update", "cosine_assign", "cosine_topk",
+           "bipartite_normalize", "spmm", "sddmm", "spmm_tiled", "spmm_ata",
+           "tiled_scale_fusion", "launch_counts", "reset_launch_counts"]
 
-# Kernel name -> (module holding its counter, counter key or None for the
-# module's ``launches`` integer).
-_KERNELS = {"kmeans_update": (_update, None), "kmeans_assign": (_assign, None),
-            "scale_apply": (_scale, None), "spmm": (_spmm, "spmm"),
-            "spmm_t": (_spmm, "spmm_t"), "spmm_ata": (_spmm, "spmm_ata")}
+# Kernel name -> (module, counter attribute, key in that attribute or None
+# when it is a plain integer).
+_KERNELS = {"kmeans_update": (_update, "launches", None),
+            "kmeans_assign": (_assign, "launches", None),
+            "cosine_assign": (_assign, "cosine_launches", "cosine_assign"),
+            "cosine_topk": (_assign, "cosine_launches", "cosine_topk"),
+            "scale_apply": (_scale, "launches", None),
+            "spmm": (_spmm, "launches", "spmm"),
+            "spmm_t": (_spmm, "launches", "spmm_t"),
+            "spmm_ata": (_spmm, "launches", "spmm_ata")}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -54,6 +60,47 @@ def kmeans_update(x: torch.Tensor, centroids: torch.Tensor,
     if _on_cuda(x):
         return _update.kmeans_update(x, centroids, weights)
     return ref.kmeans_update_ref(x, centroids, weights)
+
+
+def _check_signatures(x: torch.Tensor, signatures: torch.Tensor,
+                      k_valid: int | None) -> int:
+    """The signature count that counts: ``k_valid``, or all rows."""
+    if x.ndim != 2 or signatures.ndim != 2 or x.shape[1] != signatures.shape[1]:
+        raise ValueError(f"expected x (P, q) and signatures (K, q), got "
+                         f"{tuple(x.shape)} and {tuple(signatures.shape)}")
+    n_sigs = signatures.shape[0] if k_valid is None else k_valid
+    if not 1 <= n_sigs <= signatures.shape[0]:
+        raise ValueError(f"scoring needs 1 <= k_valid <= {signatures.shape[0]} "
+                         f"signatures, got {n_sigs}")
+    return n_sigs
+
+
+def cosine_assign(x: torch.Tensor, signatures: torch.Tensor,
+                  k_valid: int | None = None):
+    """Serving scorer: ``(labels (P,) int32, score (P,))``, the argmax of
+    ``x (P, q) @ signatures (K, q).T`` per point over the first ``k_valid``
+    signatures (all by default), ties to the lowest id."""
+    _check_signatures(x, signatures, k_valid)
+    if _on_cuda(x):
+        return _assign.cosine_assign(x.to(torch.float32).contiguous(),
+                                     signatures.to(torch.float32).contiguous(), k_valid)
+    return ref.cosine_assign_ref(x, signatures, k_valid)
+
+
+def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
+                k_valid: int | None = None):
+    """Top-``k`` serving scorer: ``(labels (P, k) int32, scores (P, k))``
+    ordered by descending score, ties toward the lower id, over the first
+    ``k_valid`` signatures; column 0 equals :func:`cosine_assign`."""
+    n_sigs = _check_signatures(x, signatures, k_valid)
+    if not 1 <= k <= n_sigs:
+        raise ValueError(
+            f"top-k width must be in [1, {n_sigs}] (the signature count), "
+            f"got k={k}")
+    if _on_cuda(x):
+        return _assign.cosine_topk(x.to(torch.float32).contiguous(),
+                                   signatures.to(torch.float32).contiguous(), k, k_valid)
+    return ref.cosine_topk_ref(x, signatures, k, k_valid)
 
 
 def bipartite_normalize(a: torch.Tensor, eps: float = 1e-8):
@@ -115,13 +162,16 @@ def spmm_ata(a: _spmm.BlockSparseMatrix, x: torch.Tensor, *,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last reset."""
-    return {name: mod.launches if key is None else mod.launches[key]
-            for name, (mod, key) in _KERNELS.items()}
+    counts = {}
+    for name, (mod, attr, key) in _KERNELS.items():
+        value = getattr(mod, attr)
+        counts[name] = value if key is None else value[key]
+    return counts
 
 
 def reset_launch_counts() -> None:
-    for mod, key in _KERNELS.values():
+    for mod, attr, key in _KERNELS.values():
         if key is None:
-            mod.launches = 0
+            setattr(mod, attr, 0)
         else:
-            mod.launches[key] = 0
+            getattr(mod, attr)[key] = 0

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 Each function computes what its hand-written kernel computes: the k-means and
-scale kernels batched over a leading block dimension ``B``, the SpMM family
-on one tile-level sparse matrix. ``ops.py`` runs them for tensors that lie on
+scale kernels batched over a leading block dimension ``B``, the cosine
+scorers on one ``(P, q)`` request batch, the SpMM family on one tile-level
+sparse matrix. ``ops.py`` runs them for tensors that lie on
 the CPU; on the card they are the oracle the tests and ``chip_smoke.py``
 hold the kernels against. They mirror the reference package's
 ``kernels/ref.py`` oracles.
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["kmeans_assign_ref", "kmeans_update_ref", "scale_apply_ref",
+__all__ = ["kmeans_assign_ref", "kmeans_update_ref", "cosine_assign_ref",
+           "cosine_topk_ref", "scale_apply_ref",
            "bipartite_normalize_ref", "spmm_ref", "spmm_block_ref", "sddmm_ref",
            "spmm_tiled_ref", "spmm_ata_ref"]
 
@@ -47,6 +49,39 @@ def kmeans_update_ref(x: torch.Tensor, centroids: torch.Tensor,
     sums = onehot.mT @ x                                         # (B, K, D)
     counts = torch.sum(onehot, dim=1)                            # (B, K)
     return labels, d2, sums, counts
+
+
+def _cosine_scores(x: torch.Tensor, signatures: torch.Tensor,
+                   k_valid: int | None) -> torch.Tensor:
+    """``x @ signatures.T`` in float32, columns at and past ``k_valid`` set
+    to -inf (the reference kernels' mask of padded signature rows)."""
+    xs = x.to(torch.float32) @ signatures.to(torch.float32).T       # (P, K)
+    if k_valid is not None and k_valid < xs.shape[1]:
+        xs[:, k_valid:] = -torch.inf
+    return xs
+
+
+def cosine_assign_ref(x: torch.Tensor, signatures: torch.Tensor,
+                      k_valid: int | None = None):
+    """Dot-score assignment of ``x (P, q)`` against unit signatures
+    ``(K, q)``: ``(labels (P,) int32, score (P,))``, ``score[i] = max_k
+    x[i] . signatures[k]`` over ``k < k_valid`` (all ``K`` by default); ties
+    go to the lowest id (``torch.argmax`` returns the first maximum, as
+    ``jnp.argmax`` does)."""
+    xs = _cosine_scores(x, signatures, k_valid)
+    return torch.argmax(xs, dim=-1).to(torch.int32), torch.amax(xs, dim=-1)
+
+
+def cosine_topk_ref(x: torch.Tensor, signatures: torch.Tensor, k: int,
+                    k_valid: int | None = None):
+    """Top-``k`` dot-score assignment: ``(labels (P, k) int32, scores (P, k))``,
+    descending, ties to the lower id, over ``k < k_valid``. ``torch.topk``
+    does not document its tie order, so this takes the first ``k`` of a
+    stable descending sort — the order of ``jax.lax.top_k`` and of the
+    kernels' argmax-and-mask. Column 0 equals :func:`cosine_assign_ref`."""
+    xs = _cosine_scores(x, signatures, k_valid)
+    scores, labels = torch.sort(xs, dim=1, descending=True, stable=True)
+    return labels[:, :k].to(torch.int32), scores[:, :k]
 
 
 def scale_apply_ref(a: torch.Tensor, s1: torch.Tensor, s2: torch.Tensor):

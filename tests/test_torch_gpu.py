@@ -114,7 +114,8 @@ def test_lamc_on_the_card_matches_the_cpu_path():
     card = lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws)
     assert ops.launch_counts() == {"kmeans_update": 2 * 16, "kmeans_assign": 2,
                                    "scale_apply": 2, "spmm": 0, "spmm_t": 0,
-                                   "spmm_ata": 0}
+                                   "spmm_ata": 0, "cosine_assign": 0,
+                                   "cosine_topk": 0}
     host = lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws, device="cpu")
     assert card.row_labels.is_cuda
     for side in ("row", "col"):
@@ -208,3 +209,126 @@ def test_sparse_lamc_on_the_card_matches_the_cpu_path():
     for side in ("row", "col"):
         assert nmi(getattr(card, f"{side}_labels").cpu().numpy(),
                    getattr(host, f"{side}_labels").numpy()) >= 0.95
+
+
+def _cosine_inputs(seed, p, q, k, dev):
+    """Random points, unit signatures with an exact duplicate pair (ids 0
+    and k - 1), and a few points equal to a signature row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((p, q), generator=g, device=dev)
+    s = torch.randn((k, q), generator=g, device=dev)
+    s = s / torch.linalg.vector_norm(s, dim=1, keepdim=True)
+    if k > 1:
+        s[k - 1] = s[0]
+    x[: min(p, 3)] = s[0]
+    return x, s
+
+
+def _check_scores(x, s, labels, scores, want_labels, want_scores):
+    """Scores within 1e-5 of the dot product's scale sum_d |x_d s_kd| (its
+    rounding error grows with it); labels equal except near ties whose two
+    plain scores lie within 1e-6 of that scale."""
+    k_cols = labels.long().reshape(labels.shape[0], -1)
+    want_cols = want_labels.long().reshape(labels.shape[0], -1)
+    full = x @ s.T
+    mag = x.abs() @ s.abs().T
+    scale = torch.gather(mag, 1, want_cols)
+    got_s, exp_s = scores.reshape(scale.shape), want_scores.reshape(scale.shape)
+    assert bool(((got_s - exp_s).abs() <= 1e-5 * scale).all())
+    differ = k_cols != want_cols
+    gap = (torch.gather(full, 1, k_cols) - torch.gather(full, 1, want_cols)).abs()
+    assert bool((gap <= 1e-6 * scale)[differ].all())
+    return int(differ.sum().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p,q,k,k_top", [
+    (1, 64, 16, 1), (64, 64, 16, 4), (1024, 64, 16, 16),     # the served model
+    (1000, 70, 13, 13),                                      # ragged q, K
+    (257, 1024, 1024, 8),                                    # the reference's envelope
+])
+def test_cuda_cosine_kernels_match_plain(p, q, k, k_top):
+    dev = _card()
+    from repro_torch.kernels import kmeans_assign
+
+    x, s = _cosine_inputs(p + k, p, q, k, dev)
+    ops.reset_launch_counts()
+    labels, score = kmeans_assign.cosine_assign(x, s)
+    top, top_s = kmeans_assign.cosine_topk(x, s, k_top)
+    assert ops.launch_counts()["cosine_assign"] == 1
+    assert ops.launch_counts()["cosine_topk"] == 1
+    rl, rs = ref.cosine_assign_ref(x, s)
+    tl, ts = ref.cosine_topk_ref(x, s, k_top)
+    _check_scores(x, s, labels, score, rl, rs)
+    _check_scores(x, s, top, top_s, tl, ts)
+    assert torch.equal(top[:, 0], labels) and torch.equal(top_s[:, 0], score)
+    assert torch.equal(labels[:3], torch.zeros(min(p, 3), dtype=torch.int32, device=dev))
+    assert bool((top_s[:, :-1] >= top_s[:, 1:]).all())
+    again = kmeans_assign.cosine_topk(x, s, k_top)
+    assert torch.equal(again[0], top) and torch.equal(again[1], top_s)
+
+
+@pytest.mark.gpu
+def test_cuda_cosine_kernels_read_only_the_valid_signatures():
+    """Rows at and past ``k_valid`` would win every point; the kernels never
+    read them, so the labels are those of the unpadded signatures."""
+    dev = _card()
+    from repro_torch.kernels import kmeans_assign
+
+    x, s = _cosine_inputs(7, 300, 64, 16, dev)
+    pad = torch.cat([s, 10.0 * x[3:11]]).contiguous()
+    labels, score = kmeans_assign.cosine_assign(x, pad, 16)
+    top, top_s = kmeans_assign.cosine_topk(x, pad, 5, 16)
+    assert int(labels.max()) < 16 and int(top.max()) < 16
+    _check_scores(x, s, labels, score, *ref.cosine_assign_ref(x, pad, 16))
+    _check_scores(x, s, top, top_s, *ref.cosine_topk_ref(x, pad, 5, 16))
+    want, want_s = kmeans_assign.cosine_topk(x, s, 5)
+    assert torch.equal(top, want) and torch.equal(top_s, want_s)
+
+
+@pytest.mark.gpu
+def test_cuda_cosine_zero_rows_and_limits():
+    dev = _card()
+    from repro_torch.kernels import _build, kmeans_assign
+
+    s = torch.eye(4, 8, device=dev)
+    ops.reset_launch_counts()
+    labels, scores = kmeans_assign.cosine_topk(torch.zeros((0, 8), device=dev), s, 2)
+    assert labels.shape == (0, 2) and ops.launch_counts()["cosine_topk"] == 0
+    max_k = _build.load("cosine").cosine_max_k()
+    assert max_k >= 1024
+    with pytest.raises(ValueError, match=f"at most K = {max_k}"):
+        kmeans_assign.cosine_assign(torch.ones((2, 8), device=dev),
+                                    torch.ones((max_k + 1, 8), device=dev))
+
+
+@pytest.mark.gpu
+def test_serving_on_the_card_matches_the_cpu_path(tmp_path):
+    """A model saved on the card loads on the CPU with equal leaves; the card
+    and the CPU give the same labels for the same requests, directly and
+    through the service."""
+    dev = _card()
+    from repro_torch import streaming
+    from repro_torch.core import lamc
+    from repro_torch.data import planted_cocluster_matrix, to_bcoo
+
+    pc = planted_cocluster_matrix(np.random.default_rng(0), 512, 384, k=4)
+    plan = lamc.partition.PartitionPlan(512, 384, 2, 2, 256, 192, 2, seed=0)
+    res = lamc.lamc_cocluster(pc.matrix, lamc.LAMCConfig(4, 4), plan=plan, device="cpu")
+    streaming.save_model(str(tmp_path), streaming.model_from_result(res).to(dev))
+    card, _ = streaming.load_model(str(tmp_path))
+    host, _ = streaming.load_model(str(tmp_path), device="cpu")
+    assert card.row_sigs.is_cuda
+    assert streaming.model_fingerprint(card) == streaming.model_fingerprint(host)
+    ops.reset_launch_counts()
+    for fn, x in ((streaming.assign_rows, pc.matrix), (streaming.assign_cols, pc.matrix.T),
+                  (lambda m, v: streaming.assign_rows_topk(m, v, k=3), pc.matrix)):
+        assert torch.equal(fn(card, x).labels.cpu(), fn(host, x).labels)
+    coo = streaming.assign_rows(card, to_bcoo(pc.matrix[:64], dev))
+    assert torch.equal(coo.labels.cpu(), streaming.assign_rows(host, pc.matrix[:64]).labels)
+    assert ops.launch_counts()["cosine_assign"] == 3
+    assert ops.launch_counts()["cosine_topk"] == 1
+    with streaming.AssignService(card, config=streaming.ServeConfig(batch=16, replicas=2)) as svc:
+        tickets = [svc.submit(pc.matrix[i:i + 5]) for i in range(0, 40, 5)]
+        got = np.concatenate([t.result(timeout=60.0).labels for t in tickets])
+    np.testing.assert_array_equal(got, streaming.assign_rows(host, pc.matrix[:40]).labels)

@@ -139,4 +139,5 @@ def test_cpu_tensors_never_launch_kernels():
     ops.bipartite_normalize(torch.from_numpy(x))
     assert ops.launch_counts() == {"kmeans_update": 0, "kmeans_assign": 0,
                                    "scale_apply": 0, "spmm": 0, "spmm_t": 0,
-                                   "spmm_ata": 0}
+                                   "spmm_ata": 0, "cosine_assign": 0,
+                                   "cosine_topk": 0}
