@@ -43,7 +43,8 @@ Phases, each printing one JSON line:
    call from CUDA-graph replay (at the served shape a call's host cost
    exceeds its device time), ``eager_ms`` the time per call launched one by
    one from Python. One more shape checks ``k_valid`` (padded signature
-   rows that would win are never chosen).
+   rows that would win are never chosen), and rows whose scores are NaN,
+   +inf or -inf must get the plain version's labels and scores exactly.
 10. ``parity_serve``: a small model fitted, saved and loaded on the card and
    on the CPU with the same injected draws; the same request batches get
    equal labels, and the card's checkpoint loads on the CPU with equal leaf
@@ -445,6 +446,36 @@ def _cosine_padded(gen) -> dict:
     return dict(shape=dict(P=p, q=q, K=k, k_valid=valid), near_ties=ties)
 
 
+def _cosine_non_finite(gen) -> None:
+    """Rows whose scores are NaN (a NaN feature), +inf/NaN/-inf (an inf
+    feature against signatures whose first feature is positive, zero or
+    negative) or all -inf: labels and scores equal the plain version's
+    (NaN first, equal values to the lower id), every id in range and none
+    twice in a row."""
+    import torch
+    from repro_torch.kernels import kmeans_assign, ref
+
+    x, s = _cosine_inputs(64, 64, 16, gen)
+    s[:, 0] = torch.tensor([0.5, 0.0, -0.5, 0.25] * 4, device="cuda")
+    x[0, 3], x[1, 0], x[2, 0] = float("nan"), float("inf"), float("-inf")
+    pos = s.clone()
+    pos[:, 0] = 0.5
+    for sigs in (s, pos):
+        got = [kmeans_assign.cosine_assign(x, sigs)] + [
+            kmeans_assign.cosine_topk(x, sigs, kt) for kt in (4, 16)]
+        want = [ref.cosine_assign_ref(x, sigs)] + [
+            ref.cosine_topk_ref(x, sigs, kt) for kt in (4, 16)]
+        for (labels, scores), (wl, ws) in zip(got, want):
+            check(torch.equal(labels[:3], wl[:3]) and torch.allclose(
+                scores[:3], ws[:3], rtol=0, atol=0, equal_nan=True),
+                  "cosine kernels: non-finite scores out of the plain order")
+            _cosine_check(x[3:], sigs, labels[3:], scores[3:], wl[3:], ws[3:],
+                          "cosine kernels beside non-finite rows")
+        every = torch.arange(16, dtype=torch.int32, device="cuda").expand(64, 16)
+        check(torch.equal(got[2][0].sort(dim=1).values, every),
+              "cosine_topk: an id out of range or chosen twice")
+
+
 def phase_kernels_cosine(gen) -> dict:
     """The serving scorers against their plain versions at the served, the
     envelope and a ragged shape, then timed beside bound, plain and
@@ -504,6 +535,7 @@ def phase_kernels_cosine(gen) -> dict:
                 eager_library_ms=cuda_time(library, iters)))
         del x, s
     padded = _cosine_padded(gen)
+    _cosine_non_finite(gen)
     for name, row in rows.items():
         p, q, k, kt = COSINE_MAIN[name]
         main = next(e for e in row["at_shapes"]
@@ -678,7 +710,7 @@ def phase_e2e_serve(cell: dict, seed: int, smi: str) -> dict:
     import threading
 
     import torch
-    from repro_torch import streaming
+    from repro_torch import obs, streaming
     from repro_torch.core.metrics import nmi
     from repro_torch.kernels import ops
     from repro_torch.launch import serve_lamc
@@ -746,7 +778,9 @@ def phase_e2e_serve(cell: dict, seed: int, smi: str) -> dict:
         v2 = registry.publish(name, model2, cfg=cfg)
         first, _ = registry.load(name, v1.version)
         config = streaming.ServeConfig(batch=64, replicas=2)
-        with streaming.AssignService(first, version=v1.version, config=config) as svc:
+        svc_metrics = obs.Registry()
+        with streaming.AssignService(first, version=v1.version, config=config,
+                                     metrics=svc_metrics) as svc:
             calls["cosine_assign"] += 1                  # warm-up of (rows, 1)
             score = svc._score_batch
 
@@ -810,7 +844,9 @@ def phase_e2e_serve(cell: dict, seed: int, smi: str) -> dict:
              requests=SERVICE_REQUESTS, replicas=2, batch=64, wall_s=service_s,
              qps_rows=stats["rows_served"] / service_s, p50_request_us=stats["p50_request_us"],
              p99_request_us=stats["p99_request_us"], batches=stats["batches"],
-             mean_batch_fill_pct=stats["mean_batch_fill_pct"], by_version=by_version),
+             mean_batch_fill_pct=stats["mean_batch_fill_pct"], by_version=by_version,
+             **{f"batch_p{p}_us": svc_metrics.histogram(
+                 "serve_svc_batch_latency_us").percentile(p) for p in (50, 99)}),
          max_memory_allocated_gib=peak, resident_at_start_gib=resident, launches=counts,
          **scores)
     check(counts == want, f"launch counts {counts}, expected {want}")

@@ -40,7 +40,6 @@ _SIGNATURES = {
     "cosine": {
         "cosine_error_string": (ctypes.c_char_p, [_I]),
         "cosine_max_k": (_I, []),
-        "cosine_assign_f32": (_I, [_P, _P, _I, _I, _I, _P, _P, _P]),
         "cosine_topk_f32": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     },
     "spmm": {

@@ -1,13 +1,17 @@
-// Cosine scoring kernels for Hopper (sm_90a): the serving path's scorers.
+// Cosine scoring kernel for Hopper (sm_90a): the serving path's scorer.
 //
 // Replaces the TPU kernels
 //   cosine_assign_pallas  src/repro/kernels/kmeans_assign.py:168  (argmax_k x.s_k)
 //   cosine_topk_pallas    src/repro/kernels/kmeans_assign.py:132  (k_top best, descending)
 // and computes what they compute: scores = x @ s^T in float32 with float32
-// accumulation, then k_top rounds of argmax-and-mask over each point's
-// scores. Ties go to the lower signature id in every round, as jnp.argmax
-// and jax.lax.top_k break them. cosine_assign is the k_top = 1 launch of the
-// same kernel, so cosine_topk(...)[:, 0] equals it bit for bit.
+// accumulation, then the k_top first of each point's scores in the order of
+// a stable descending sort: NaN before every number (the first NaN wins,
+// and a NaN score comes back as the canonical NaN), then larger scores,
+// equal scores to the lower signature id. That is the order of jnp.argmax
+// and of the reference's argmax-and-mask rounds (which, unlike this
+// kernel, pick the first -inf again once only -inf is left). cosine_assign is
+// the k_top = 1 launch of the one entry point, so cosine_topk(...)[:, 0]
+// equals it bit for bit.
 //
 // Bound on an H100: at the served model's shape (q = 64 anchors, K = 16
 // signatures) bytes (reading x), at the reference's envelope (q = K = 1024)
@@ -29,9 +33,8 @@
 //     there is nothing to mask. The caller's k_valid is passed as K: rows
 //     at and beyond it are never read.
 //   * the (kTileP, K) score tile stays in shared memory for the k_top
-//     rounds: eight lanes per point scan its row, reduce (score, id) by
-//     shuffles and mask the winner, all 32 points at once. No score ever
-//     goes to device memory.
+//     rounds: eight lanes per point scan its row and reduce (score, id) by
+//     shuffles, all 32 points at once. No score ever goes to device memory.
 //   * each (point, signature) score is one fmaf chain over ascending
 //     features, starting from 0, whatever the tile (the features past q in
 //     the last staged slice are zeros, and fmaf(0, 0, a) == a), so results
@@ -40,7 +43,6 @@
 // Plain C interface for ctypes; every entry point returns a cudaError_t.
 
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
 namespace {
 
@@ -69,6 +71,20 @@ constexpr int kMaxDevices = 64;
 
 size_t smem_bytes(int K) {
   return sizeof(float) * ((size_t)kTileP * (K + 1) + kStaging);
+}
+
+// A score as an unsigned key in the order of a stable descending sort:
+// NaN above +inf, -0 equal to +0, the rest as the floats order.
+__device__ __forceinline__ unsigned order_key(float v) {
+  if (isnan(v)) return 0xffffffffu;
+  const unsigned u = __float_as_uint(v == 0.f ? 0.f : v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// The score of a key (every NaN comes back as the same NaN).
+__device__ __forceinline__ float key_score(unsigned key) {
+  if (key == 0xffffffffu) return __uint_as_float(0x7fffffffu);
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -155,47 +171,59 @@ cosine_topk_kernel(const float* __restrict__ x, const float* __restrict__ s,
   }
   __syncthreads();
 
-  // k_top rounds of argmax-and-mask. kGroup lanes share a point (all 32
-  // points at once); each scans every kGroup-th score of its row, then the
-  // group reduces (score, id) by xor shuffles, comparing by score and then
-  // by the lower id (id K marks "none yet"), and its first lane stores and
-  // masks the winner.
+  // k_top rounds of selection. kGroup lanes share a point (all 32 points
+  // at once). Each (score, id) is one 64-bit rank, the score's key above
+  // K - id, so a larger rank comes first in a stable descending sort and
+  // no two ranks are equal. Round r takes the largest rank below round
+  // r - 1's: each lane scans every kGroup-th score of its row, then the
+  // group reduces by xor shuffles, so every lane holds the winner. Nothing
+  // is masked, so no id is chosen twice even where scores are -inf or NaN;
+  // every rank is at least 1 and below ~0, the two sentinels.
   const int r = t / kGroup, g = t % kGroup;
   const bool live = r < np;
-  float* row = sc + (size_t)r * ks;
+  const float* row = sc + (size_t)r * ks;
+  unsigned long long prev = ~0ull;
   for (int round = 0; round < k_top; ++round) {
-    float bv = -CUDART_INF_F;
-    int bi = K;
+    unsigned long long best = 0;
     if (live) {
       for (int k = g; k < K; k += kGroup) {
-        const float v = row[k];
-        if (v > bv || (v == bv && k < bi)) {
-          bv = v;
-          bi = k;
-        }
+        const unsigned long long rank =
+            ((unsigned long long)order_key(row[k]) << 32) | (unsigned)(K - k);
+        if (rank < prev && rank > best) best = rank;
       }
     }
 #pragma unroll
     for (int off = kGroup / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off, kGroup);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off, kGroup);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, off, kGroup);
+      if (other > best) best = other;
     }
     if (live && g == 0) {
       const size_t out = (p0 + r) * (size_t)k_top + round;
-      labels[out] = bi;
-      scores[out] = bv;
-      row[bi] = -CUDART_INF_F;
+      labels[out] = K - (int)(unsigned)best;
+      scores[out] = key_score((unsigned)(best >> 32));
     }
-    __syncwarp();
+    prev = best;
   }
 }
 
-int launch(const float* x, const float* s, int P, int Q, int K, int k_top,
-           int* labels, float* scores, void* stream) {
+}  // namespace
+
+extern "C" {
+
+const char* cosine_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// The most signatures one launch takes: the (kTileP, K) score tile and the
+// two staged slices must fit in a CTA's shared memory.
+int cosine_max_k(void) {
+  return (int)((kSmemLimit / sizeof(float) - (size_t)kStaging) / kTileP) - 1;
+}
+
+// x (P,Q), s (K,Q) -> labels (P,k_top) int32, scores (P,k_top), descending.
+// K is the caller's k_valid: only the first K rows of s are read.
+int cosine_topk_f32(const float* x, const float* s, int P, int Q, int K, int k_top,
+                    int* labels, float* scores, void* stream) {
   if (P < 1 || Q < 1 || K < 1 || k_top < 1 || k_top > K)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(K);
@@ -219,33 +247,6 @@ int launch(const float* x, const float* s, int P, int Q, int K, int k_top,
   cosine_topk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, s, P, Q, K, k_top, labels, scores);
   return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-extern "C" {
-
-const char* cosine_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// The most signatures one launch takes: the (kTileP, K) score tile and the
-// two staged slices must fit in a CTA's shared memory.
-int cosine_max_k(void) {
-  return (int)((kSmemLimit / sizeof(float) - (size_t)kStaging) / kTileP) - 1;
-}
-
-// x (P,Q), s (K,Q) -> labels (P,) int32, scores (P,). K is the caller's
-// k_valid: only the first K rows of s are read.
-int cosine_assign_f32(const float* x, const float* s, int P, int Q, int K,
-                      int* labels, float* scores, void* stream) {
-  return launch(x, s, P, Q, K, 1, labels, scores, stream);
-}
-
-// x (P,Q), s (K,Q) -> labels (P,k_top) int32, scores (P,k_top), descending.
-int cosine_topk_f32(const float* x, const float* s, int P, int Q, int K, int k_top,
-                    int* labels, float* scores, void* stream) {
-  return launch(x, s, P, Q, K, k_top, labels, scores, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,8 @@ clamped squared distances for a ``(B, P, D)`` batch of points against
 ``cosine_assign`` and ``cosine_topk`` replace ``cosine_assign_pallas``
 (``:168``) and ``cosine_topk_pallas`` (``:132``): the best (or the ``k``
 best, descending) of ``x (P, q) @ signatures (K, q).T`` per point, ties to
-the lower id. ``P``, ``q``, ``K`` and ``k`` are run-time values; nothing is
+the lower id, NaN first. Both launch the one kernel, ``cosine_assign`` with
+``k = 1``. ``P``, ``q``, ``K`` and ``k`` are run-time values; nothing is
 padded. The reference's ``k_valid`` (signature rows at and past it are
 masked to -inf) is passed to the kernel as its signature count, so those
 rows are never read.
@@ -27,7 +28,7 @@ import torch
 from . import _build
 
 __all__ = ["kmeans_assign", "check_points", "MAX_D", "MAX_K", "cosine_assign",
-           "cosine_topk", "check_scoring"]
+           "cosine_topk"]
 
 MAX_D = 64
 MAX_K = 64
@@ -91,68 +92,49 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     return labels, d2
 
 
-def check_scoring(x: torch.Tensor, signatures: torch.Tensor, k: int,
-                  k_valid: int) -> None:
-    """Raise unless the operands are what the CUDA cosine scorers take (the
-    signature-count limit is checked against the built library)."""
-    if x.ndim != 2 or signatures.ndim != 2 or x.shape[1] != signatures.shape[1]:
-        raise ValueError(f"expected x (P, q) and signatures (K, q), got "
-                         f"{tuple(x.shape)} and {tuple(signatures.shape)}")
-    (p, q), n_sigs = x.shape, signatures.shape[0]
-    if not (q >= 1 and 1 <= k <= k_valid <= n_sigs and p < 2**31):
-        raise ValueError(f"the cosine kernels take q >= 1, 1 <= k <= k_valid <= K "
-                         f"and P < 2**31; got P={p} q={q} K={n_sigs} "
-                         f"k_valid={k_valid} k={k}")
+def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
+                k_valid: int | None = None, *, counter: str = "cosine_topk"):
+    """``(labels (P, k) int32, scores (P, k))``, descending, computed by the
+    CUDA kernel over the first ``k_valid`` signatures (all by default); a
+    zero-row ``x`` returns empty tensors without a launch. The launch is
+    counted under ``counter``. The caller checks the arguments' meaning
+    (``ops``); this checks what the kernel needs to read its operands."""
+    k_valid = signatures.shape[0] if k_valid is None else k_valid
+    if (x.ndim != 2 or signatures.ndim != 2 or x.shape[1] != signatures.shape[1]
+            or k_valid > signatures.shape[0]):
+        raise ValueError(f"expected x (P, q) and signatures (K >= k_valid, q), got "
+                         f"{tuple(x.shape)}, {tuple(signatures.shape)}, k_valid={k_valid}")
     for name, t in (("x", x), ("signatures", signatures)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} must lie on x's CUDA device, got {t.device}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
-
-
-def _score(x: torch.Tensor, signatures: torch.Tensor, k: int, k_valid: int | None,
-           name: str):
-    k_valid = signatures.shape[0] if k_valid is None else k_valid
-    check_scoring(x, signatures, k, k_valid)
     lib = _build.load("cosine")
     max_k = lib.cosine_max_k()
     if k_valid > max_k:
-        raise ValueError(f"the cosine kernels take at most K = {max_k} signatures "
+        raise ValueError(f"the cosine kernel takes at most K = {max_k} signatures "
                          f"(the score tile must fit in shared memory); got "
                          f"K={k_valid}")
     p, q = x.shape
-    shape = (p,) if name == "cosine_assign" else (p, k)
-    labels = torch.empty(shape, dtype=torch.int32, device=x.device)
-    scores = torch.empty(shape, dtype=torch.float32, device=x.device)
+    labels = torch.empty((p, k), dtype=torch.int32, device=x.device)
+    scores = torch.empty((p, k), dtype=torch.float32, device=x.device)
     if p == 0:
         return labels, scores
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # the kernel reads only the first k_valid signature rows: the rows the
     # reference masks to -inf are never scored
-    if name == "cosine_assign":
-        err = lib.cosine_assign_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid,
-                                    labels.data_ptr(), scores.data_ptr(), stream)
-    else:
-        err = lib.cosine_topk_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid, k,
-                                  labels.data_ptr(), scores.data_ptr(), stream)
+    err = lib.cosine_topk_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid, k,
+                              labels.data_ptr(), scores.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"{name} launch failed: "
+        raise RuntimeError(f"{counter} launch failed: "
                            f"{lib.cosine_error_string(err).decode()}")
     with _cosine_lock:
-        cosine_launches[name] += 1
+        cosine_launches[counter] += 1
     return labels, scores
 
 
 def cosine_assign(x: torch.Tensor, signatures: torch.Tensor, k_valid: int | None = None):
-    """``(labels (P,) int32, scores (P,))`` computed by the CUDA kernel over
-    the first ``k_valid`` signatures (all by default); a zero-row ``x``
-    returns empty tensors without a launch."""
-    return _score(x, signatures, 1, k_valid, "cosine_assign")
-
-
-def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
-                k_valid: int | None = None):
-    """``(labels (P, k) int32, scores (P, k))``, descending, computed by the
-    CUDA kernel over the first ``k_valid`` signatures (all by default); a
-    zero-row ``x`` returns empty tensors without a launch."""
-    return _score(x, signatures, k, k_valid, "cosine_topk")
+    """``(labels (P,) int32, scores (P,))``: the ``k = 1`` launch of
+    :func:`cosine_topk`, counted under ``cosine_assign``."""
+    labels, scores = cosine_topk(x, signatures, 1, k_valid, counter="cosine_assign")
+    return labels[:, 0], scores[:, 0]

@@ -75,10 +75,11 @@ def cosine_assign_ref(x: torch.Tensor, signatures: torch.Tensor,
 def cosine_topk_ref(x: torch.Tensor, signatures: torch.Tensor, k: int,
                     k_valid: int | None = None):
     """Top-``k`` dot-score assignment: ``(labels (P, k) int32, scores (P, k))``,
-    descending, ties to the lower id, over ``k < k_valid``. ``torch.topk``
-    does not document its tie order, so this takes the first ``k`` of a
-    stable descending sort — the order of ``jax.lax.top_k`` and of the
-    kernels' argmax-and-mask. Column 0 equals :func:`cosine_assign_ref`."""
+    descending, ties to the lower id, NaN first, over ``k < k_valid``.
+    ``torch.topk`` does not document its tie order, so this takes the first
+    ``k`` of a stable descending sort — the order of ``jax.lax.top_k`` on
+    finite scores, of the reference kernel's argmax-and-mask and of the CUDA
+    kernel. Column 0 equals :func:`cosine_assign_ref`."""
     xs = _cosine_scores(x, signatures, k_valid)
     scores, labels = torch.sort(xs, dim=1, descending=True, stable=True)
     return labels[:, :k].to(torch.int32), scores[:, :k]

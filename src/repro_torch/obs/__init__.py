@@ -5,15 +5,10 @@
   by default (``configure(enabled=True)`` or ``REPRO_OBS=1``).
 * ``metrics`` — counters, gauges and fixed-bucket histograms in a global
   default :class:`Registry` (always on: host-side, O(1), bounded memory).
-* ``export``  — per-run JSONL trace files and a schema validator.
+* ``export``  — per-run JSONL trace files in the reference's schema.
 """
 
-from .export import (
-    trace_rows,
-    validate_rows,
-    validate_trace_jsonl,
-    write_trace_jsonl,
-)
+from .export import trace_rows, write_trace_jsonl
 from .metrics import (
     Counter,
     Gauge,
@@ -39,5 +34,5 @@ __all__ = [
     "enabled", "current_trace", "reset_trace",
     "Counter", "Gauge", "Histogram", "Registry", "get_registry",
     "default_latency_buckets_us",
-    "trace_rows", "write_trace_jsonl", "validate_trace_jsonl", "validate_rows",
+    "trace_rows", "write_trace_jsonl",
 ]

@@ -1,4 +1,4 @@
-"""Trace JSONL export and schema validation.
+"""Trace JSONL export.
 
 Row schema (``TRACE_SCHEMA_VERSION`` 1), one JSON object per line:
 
@@ -9,9 +9,8 @@ Row schema (``TRACE_SCHEMA_VERSION`` 1), one JSON object per line:
 * event  — ``{"type": "event", "name", "path", "t_s", "attrs"}`` where
   ``path`` names the span the event fired inside (``""`` = trace-level)
 
-``validate_trace_jsonl`` checks a trace file against this schema. The
-schema is the reference package's, so traces of the two packages compare
-row for row (the reference's validator accepts the port's files).
+The schema is the reference package's, so traces of the two packages
+compare row for row (the reference's validator accepts the port's files).
 """
 
 from __future__ import annotations
@@ -20,10 +19,7 @@ import json
 
 from .trace import TRACE_SCHEMA_VERSION, Trace, current_trace
 
-__all__ = ["trace_rows", "write_trace_jsonl", "validate_trace_jsonl", "validate_rows"]
-
-_SPAN_KEYS = {"type", "name", "path", "depth", "t_start_s", "dur_s", "attrs"}
-_EVENT_KEYS = {"type", "name", "path", "t_s", "attrs"}
+__all__ = ["trace_rows", "write_trace_jsonl"]
 
 
 def trace_rows(tr: Trace | None = None) -> list[dict]:
@@ -56,74 +52,3 @@ def write_trace_jsonl(path: str, tr: Trace | None = None) -> str:
         for row in trace_rows(tr):
             f.write(json.dumps(row, default=str) + "\n")
     return path
-
-
-def _is_num(v) -> bool:
-    return isinstance(v, (int, float)) and not isinstance(v, bool)
-
-
-def validate_rows(rows: list[dict]) -> list[str]:
-    """Schema errors in a row list (empty list = valid)."""
-    errors: list[str] = []
-    if not rows:
-        return ["empty trace: no rows"]
-    head = rows[0]
-    if head.get("type") != "trace":
-        errors.append(f"row 1: first row must be the trace header, "
-                      f"got type={head.get('type')!r}")
-    elif head.get("version") != TRACE_SCHEMA_VERSION:
-        errors.append(f"row 1: unsupported schema version "
-                      f"{head.get('version')!r} (expected "
-                      f"{TRACE_SCHEMA_VERSION})")
-    for i, row in enumerate(rows[1:], start=2):
-        kind = row.get("type")
-        if kind == "span":
-            missing = _SPAN_KEYS - set(row)
-            if missing:
-                errors.append(f"row {i}: span missing {sorted(missing)}")
-                continue
-            if not isinstance(row["name"], str) or not row["name"]:
-                errors.append(f"row {i}: span name must be a non-empty str")
-            if not isinstance(row["depth"], int) or row["depth"] < 0:
-                errors.append(f"row {i}: span depth must be an int >= 0")
-            if not _is_num(row["dur_s"]) or row["dur_s"] < 0:
-                errors.append(f"row {i}: span dur_s must be a number >= 0")
-            if not _is_num(row["t_start_s"]):
-                errors.append(f"row {i}: span t_start_s must be a number")
-            if not isinstance(row["attrs"], dict):
-                errors.append(f"row {i}: span attrs must be an object")
-            if not isinstance(row["path"], str) or \
-                    not row["path"].endswith(row.get("name", "")):
-                errors.append(f"row {i}: span path must end with its name")
-        elif kind == "event":
-            missing = _EVENT_KEYS - set(row)
-            if missing:
-                errors.append(f"row {i}: event missing {sorted(missing)}")
-                continue
-            if not isinstance(row["name"], str) or not row["name"]:
-                errors.append(f"row {i}: event name must be a non-empty str")
-            if not _is_num(row["t_s"]):
-                errors.append(f"row {i}: event t_s must be a number")
-            if not isinstance(row["attrs"], dict):
-                errors.append(f"row {i}: event attrs must be an object")
-        elif kind == "trace":
-            errors.append(f"row {i}: duplicate trace header")
-        else:
-            errors.append(f"row {i}: unknown row type {kind!r}")
-    return errors
-
-
-def validate_trace_jsonl(path: str) -> list[str]:
-    """Schema errors in a JSONL file (bad JSON lines are errors too)."""
-    rows = []
-    errors = []
-    with open(path) as f:
-        for n, line in enumerate(f, start=1):
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                rows.append(json.loads(line))
-            except ValueError as e:
-                errors.append(f"line {n}: not valid JSON ({e})")
-    return errors + validate_rows(rows)

@@ -45,30 +45,18 @@ class TopKAssignResult(NamedTuple):
     scores: torch.Tensor   # (B, k) f32 cosine scores, descending
 
 
-def _empty(shape, device) -> tuple[torch.Tensor, torch.Tensor]:
-    return (torch.zeros(shape, dtype=torch.int32, device=device),
-            torch.zeros(shape, dtype=torch.float32, device=device))
-
-
 def _assign(feats: torch.Tensor, mean: torch.Tensor, sigs: torch.Tensor) -> AssignResult:
-    if feats.shape[0] == 0:
-        # the service's coalescer can flush an empty batch: answer it
-        # without a launch, in the kernel's dtypes
-        return AssignResult(*_empty((0,), sigs.device))
+    """Score gathered anchor features ``(B, q)``; a zero-row batch (the
+    service's coalescer can flush one) is answered by ``ops`` without a
+    launch, in the kernel's dtypes."""
     f = feats.to(torch.float32) - mean[None, :]
     return AssignResult(*_kops.cosine_assign(f, sigs))
 
 
 def _assign_topk(feats: torch.Tensor, mean: torch.Tensor, sigs: torch.Tensor,
                  k: int) -> TopKAssignResult:
-    if feats.shape[0] == 0:
-        # same zero-row answer as ``_assign``; k is still checked, since a
-        # bad k is a caller bug at any batch size
-        if not 1 <= k <= sigs.shape[0]:
-            raise ValueError(
-                f"top-k width must be in [1, {sigs.shape[0]}] (the "
-                f"signature count), got k={k}")
-        return TopKAssignResult(*_empty((0, k), sigs.device))
+    """Top-``k`` twin of :func:`_assign`; ``ops`` checks ``k`` at every batch
+    size, zero rows included."""
     f = feats.to(torch.float32) - mean[None, :]
     return TopKAssignResult(*_kops.cosine_topk(f, sigs, k))
 

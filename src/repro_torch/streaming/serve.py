@@ -3,11 +3,12 @@
 The serving layer over ``streaming.assign``: callers
 :meth:`AssignService.submit` variable-size request batches and get back a
 :class:`Ticket`; worker replicas coalesce admitted requests into
-**fixed-shape** batches (zero-padded to ``ServeConfig.batch`` rows), put
-each batch on the engine's device, score it against the current
-:class:`_Engine` (the cosine kernels on the card), and fulfil the tickets
-with host numpy results stamped with the model version that served them.
-The fixed shape is what a later CUDA-graph capture of the scorers needs.
+**fixed-shape** batches of the requests' anchor features (gathered on the
+host and zero-padded to ``ServeConfig.batch`` rows, so a batch moves
+``(batch, q)`` floats to the device, not ``(batch, dim)``), score them
+against the current :class:`_Engine` (the cosine kernels on the card), and
+fulfil the tickets with host numpy results stamped with the model version
+that served them.
 
 Admission is load-shedding, not blocking: a request is rejected *at
 submit* — with a machine-readable reason code counted per reason in
@@ -45,7 +46,7 @@ import torch
 
 from .. import obs as _obs
 from ..device import resolve_device
-from .assign import assign_cols, assign_cols_topk, assign_rows, assign_rows_topk
+from .assign import _assign, _assign_topk
 from .model import CoclusterModel
 
 __all__ = ["AssignService", "ServeConfig", "ServeResult", "Ticket",
@@ -57,6 +58,9 @@ __all__ = ["AssignService", "ServeConfig", "ServeResult", "Ticket",
 REJECT_REASONS = ("bad_rank", "bad_width", "bad_dtype", "non_finite",
                   "bad_k", "oversize", "queue_full", "shutdown",
                   "internal_error")
+
+#: how often an idle worker wakes to look at the queue, seconds
+_POLL_S = 0.05
 
 
 def validate_request(x, dim: int) -> tuple[str, str] | None:
@@ -129,7 +133,6 @@ class ServeConfig:
     batch: int = 64               # fixed batch rows; also max request size
     replicas: int = 1             # scoring worker threads
     max_queue_rows: int = 4096    # admission budget; beyond it -> queue_full
-    poll_timeout_s: float = 0.05  # worker wake-up cadence while idle
 
 
 class _Request(NamedTuple):
@@ -146,9 +149,10 @@ class _Engine:
     Engines are constructed, warmed, and then only *read* — the swap
     protocol relies on that: a worker that grabbed an engine reference
     can keep scoring against it while the service reference already
-    points at a successor. A scorer is a plain function over the assign
-    functions (no graph capture yet); creation is get-or-create under a
-    lock because any worker thread may ask first.
+    points at a successor. A scorer maps a batch of anchor features
+    ``(batch, q)`` on the device to labels and scores; creation is
+    get-or-create under a lock because any worker thread may ask first.
+    The anchor ids are kept on the host too, where requests are gathered.
     """
 
     def __init__(self, model: CoclusterModel, version: str,
@@ -156,6 +160,8 @@ class _Engine:
         self.version = version
         self.device = device
         self.model = model.to(device)
+        self._anchors = {"rows": model.anchor_cols.cpu().numpy(),
+                         "cols": model.anchor_rows.cpu().numpy()}
         self._scorers: dict[tuple[str, int], Callable] = {}
         self._lock = threading.Lock()
 
@@ -166,28 +172,42 @@ class _Engine:
         return (self.model.n_row_clusters if axis == "rows"
                 else self.model.n_col_clusters)
 
+    def anchor_features(self, axis: str, reqs: list[_Request],
+                        batch: int) -> np.ndarray:
+        """The requests' anchor coordinates, stacked and zero-padded on the
+        host to ``(batch, q)``."""
+        anchors, dim = self._anchors[axis], self.dim(axis)
+        out = np.zeros((batch, anchors.shape[0]), np.float32)
+        off = 0
+        for r in reqs:
+            if r.x.shape[1] != dim:
+                raise ValueError(f"request width {r.x.shape[1]} does not match "
+                                 f"the model's {dim}")
+            out[off:off + r.rows] = r.x[:, anchors]
+            off += r.rows
+        return out
+
     def scorer(self, axis: str, k: int) -> Callable:
         key = (axis, k)
         with self._lock:
             fn = self._scorers.get(key)
             if fn is not None:
                 return fn
-            model = self.model
+            m = self.model
+            mean, sigs = ((m.row_mean, m.row_sigs) if axis == "rows"
+                          else (m.col_mean, m.col_sigs))
             if k == 1:
-                base = assign_rows if axis == "rows" else assign_cols
-                fn = lambda x: base(model, x)
+                fn = lambda f: _assign(f, mean, sigs)
             else:
-                base = (assign_rows_topk if axis == "rows"
-                        else assign_cols_topk)
-                fn = lambda x: base(model, x, k=k)
+                fn = lambda f: _assign_topk(f, mean, sigs, k)
             self._scorers[key] = fn
             return fn
 
     def warm(self, axis: str, k: int, batch: int) -> None:
         """Run the (axis, k) scorer once at the service's fixed batch shape
         (kernel build, allocator) — the pre-warm step of the swap protocol."""
-        x = torch.zeros((batch, self.dim(axis)), device=self.device)
-        self.scorer(axis, k)(x).labels.cpu()
+        f = torch.zeros((batch, self._anchors[axis].shape[0]), device=self.device)
+        self.scorer(axis, k)(f)[0].cpu()
 
     def warmed_keys(self) -> tuple[tuple[str, int], ...]:
         with self._lock:
@@ -206,7 +226,7 @@ class AssignService:
     def __init__(self, model: CoclusterModel, *, version: str = "v1",
                  config: ServeConfig = ServeConfig(),
                  metrics: _obs.Registry | None = None,
-                 warm: bool = True, device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda"):
         self.config = config
         self._device = resolve_device(device)
         if config.batch < 1:
@@ -236,8 +256,7 @@ class AssignService:
             help="per-batch fill: coalesced rows / batch capacity, %")
 
         self._engine = _Engine(model, version, self._device)
-        if warm:
-            self._engine.warm("rows", 1, config.batch)
+        self._engine.warm("rows", 1, config.batch)
 
         self._cond = threading.Condition()
         self._queues: dict[tuple[str, int], deque[_Request]] = {}
@@ -344,7 +363,7 @@ class AssignService:
         while True:
             with self._cond:
                 while not self._closed and not any(self._queues.values()):
-                    self._cond.wait(self.config.poll_timeout_s)
+                    self._cond.wait(_POLL_S)
                 taken = self._take_batch()
                 if taken is None:
                     if self._closed:
@@ -360,16 +379,12 @@ class AssignService:
         rows = sum(r.rows for r in reqs)
         t0 = time.perf_counter()
         try:
-            # the fill is inside the guard: a swap to a model with a
+            # the gather is inside the guard: a swap to a model with a
             # different feature width turns queued old-width requests
             # into per-request internal_error rejects, never a dead
             # worker thread
-            xb = np.zeros((self.config.batch, engine.dim(axis)), np.float32)
-            off = 0
-            for r in reqs:
-                xb[off:off + r.rows] = r.x
-                off += r.rows
-            out = engine.scorer(axis, k)(torch.from_numpy(xb).to(engine.device))
+            feats = engine.anchor_features(axis, reqs, self.config.batch)
+            out = engine.scorer(axis, k)(torch.from_numpy(feats).to(engine.device))
             labels = out[0].cpu().numpy()
             scores = out[1].cpu().numpy()
         except Exception as e:  # noqa: BLE001 — a worker must survive any batch

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.kmeans_assign import cosine_assign_pallas, cosine_topk_pallas
 from repro_torch.kernels import kmeans_assign, ops, ref
 
@@ -142,6 +143,52 @@ def test_k_valid_bounds_k_as_the_signature_count_does():
             ops.cosine_assign(x, s, k_valid=bad)
     labels, _ = ops.cosine_topk(x, s, 3, k_valid=3)
     assert int(labels.max()) < 3
+
+
+def _non_finite_inputs(first):
+    """Rows whose scores hold NaN, +inf and -inf: a NaN feature in row 0
+    makes every score NaN; rows 1 and 2 carry +inf and -inf in feature 0,
+    against signatures whose feature 0 is positive, zero (inf * 0 = NaN) or
+    negative (``first="mixed"``) or positive only, which makes row 2's
+    scores all -inf."""
+    x, s = _inputs(3, 6, 8, 6)
+    s[:, 0] = [0.5, 0.0, -0.5, 0.5, 0.0, -0.5] if first == "mixed" else 0.5
+    x[0, 3], x[1, 0], x[2, 0] = np.nan, np.inf, -np.inf
+    return x, s
+
+
+@pytest.mark.parametrize("first", ["mixed", "positive"])
+def test_non_finite_scores_follow_the_reference_order(first):
+    """NaN comes before every number, the first NaN winning, and equal
+    infinities go to the lower id: the order of ``jnp.argmax`` and of the
+    reference's argmax-and-mask kernel (run in interpret mode). That kernel
+    masks a winner to -inf, so once only -inf scores are left it picks the
+    first of them again in every round; the port goes on through them in
+    ascending id order, as a stable descending sort does. (``jax.lax.top_k``
+    on the CPU is no oracle here: it puts NaN first in some rows and last
+    in others.)"""
+    x, s = _non_finite_inputs(first)
+    tx, ts = torch.from_numpy(x), torch.from_numpy(s)
+    labels, score = ops.cosine_assign(tx, ts)
+    for jl, js in (jref.cosine_assign_ref(jnp.asarray(x), jnp.asarray(s)),
+                   jops.cosine_assign(jnp.asarray(x), jnp.asarray(s))):
+        np.testing.assert_array_equal(labels.numpy(), np.asarray(jl))
+        np.testing.assert_allclose(score.numpy(), np.asarray(js), rtol=RTOL, atol=ATOL)
+    assert np.isnan(score[0].item())
+    full = tx @ ts.T
+    for k_top in (1, 3, 6):
+        labels, scores = ops.cosine_topk(tx, ts, k_top)
+        jl, js = (np.asarray(v) for v in jops.cosine_topk(jnp.asarray(x), jnp.asarray(s),
+                                                          k_top))
+        for i in range(x.shape[0]):
+            m = min(int((full[i] != -torch.inf).sum()), k_top)  # before the -inf run
+            np.testing.assert_array_equal(labels[i, :m].numpy(), jl[i, :m])
+            np.testing.assert_allclose(scores[i, :m].numpy(), js[i, :m], rtol=RTOL,
+                                       atol=ATOL)
+            rest = torch.nonzero(full[i] == -torch.inf)[:k_top - m, 0]
+            assert torch.equal(labels[i, m:].long(), rest)
+            assert bool((scores[i, m:] == -torch.inf).all())
+    assert all(len(set(row.tolist())) == 6 for row in labels)   # no id twice
 
 
 def test_zero_rows_give_empty_results():

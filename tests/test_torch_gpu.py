@@ -287,6 +287,36 @@ def test_cuda_cosine_kernels_read_only_the_valid_signatures():
 
 
 @pytest.mark.gpu
+def test_cuda_cosine_kernels_order_non_finite_scores_as_plain():
+    """Rows whose scores are NaN, +inf or -inf: the kernel takes the plain
+    version's order (NaN first, the first NaN winning, equal infinities to
+    the lower id) and never returns an id out of range or an id twice."""
+    dev = _card()
+    from repro_torch.kernels import kmeans_assign
+
+    x, s = _cosine_inputs(5, 40, 64, 16, dev)
+    s[:, 0] = torch.tensor([0.5, 0.0, -0.5, 0.25] * 4, device=dev)
+    x[0, 3], x[1, 0], x[2, 0] = float("nan"), float("inf"), float("-inf")
+    pos = s.clone()
+    pos[:, 0] = 0.5                       # row 2 then scores -inf everywhere
+    for sigs in (s, pos):
+        labels, score = kmeans_assign.cosine_assign(x, sigs)
+        rl, rs = ref.cosine_assign_ref(x, sigs)
+        assert torch.equal(labels[:3], rl[:3])
+        torch.testing.assert_close(score[:3], rs[:3], rtol=0, atol=0, equal_nan=True)
+        _check_scores(x[3:], sigs, labels[3:], score[3:], rl[3:], rs[3:])
+        for k_top in (1, 4, 16):
+            top, top_s = kmeans_assign.cosine_topk(x, sigs, k_top)
+            tl, ts = ref.cosine_topk_ref(x, sigs, k_top)
+            assert torch.equal(top[:3], tl[:3])
+            torch.testing.assert_close(top_s[:3], ts[:3], rtol=0, atol=0, equal_nan=True)
+            _check_scores(x[3:], sigs, top[3:], top_s[3:], tl[3:], ts[3:])
+            assert int(top.min()) >= 0 and int(top.max()) < 16
+        assert torch.equal(top.sort(dim=1).values,
+                           torch.arange(16, dtype=torch.int32, device=dev).expand(40, 16))
+
+
+@pytest.mark.gpu
 def test_cuda_cosine_zero_rows_and_limits():
     dev = _card()
     from repro_torch.kernels import _build, kmeans_assign
