@@ -56,11 +56,27 @@ Phases, each printing one JSON line:
    requests and one hot swap to a version published through the
    ``ModelRegistry``. Held-out rows and re-assigned columns must recover the
    planted and fitted labels (NMI >= 0.8).
-12. The card's line from nvidia-smi, the ``kernels`` summary, and last
+12. ``kernel`` (k-means at K = D = 128): both k-means kernels past one
+   centroid and one feature slice, against their plain versions, timed.
+13. ``kernel`` (flash): the flash-attention kernel at the served prefill's
+   shape (B = 4, Hq = 32, Hkv = 8, S = 2048, Dh = 128, bf16), the same in
+   float32, Dh = 64 (15/5 heads), Dh = 256, a ragged S = 1000 and
+   non-causal, against its plain version, then timed (CUDA events) beside its
+   bound, the plain version and ``scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it).
+14. ``parity_lm``: qwen3-4b at full width, depth cut to 2 layers, B = 1,
+   S = 256, float32 compute, on the card (the kernel) and on the CPU (the
+   plain version) with the same weights: prefill logits within 1e-3 of
+   max|logit| and the same greedy tokens over 4 steps.
+15. ``lm_qwen3_4b_serve``: ``launch.serve.generate`` of the full qwen3-4b
+   (36 layers, random weights from ``--seed``), batch 4, prompt 2048, 32
+   tokens: prefill ms, decode tokens/s, peak memory, one flash launch per
+   layer, every logit finite.
+16. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
 
 Phases 9-11 run right after phase 5, while the dense cell's matrix is still
-on the card.
+on the card; the LM phases run last, after the sparse cell is freed.
 
 Any failed check or error exits nonzero before the last line. Without a
 CUDA device, or without the repository beside it, the script exits 1.
@@ -82,6 +98,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM float32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 tensor cores
 
 # The single-card LAMC cell: the repo's lamc_1m workload shape class at one
 # eighth of its rows and one sixteenth of its columns, planted k = d = 16.
@@ -117,6 +134,30 @@ COSINE_TIE_RTOL = 1e-6         # a label may differ only on a tie this near
 SERVE_ROW_BATCHES = {1: 200, 64: 100, 1024: 40}   # batch rows -> requests
 SERVE_COL_BATCH, SERVE_COL_REQUESTS = 64, 40
 SERVICE_REQUESTS = 256
+
+# k-means past one centroid slice and one feature slice (no K or D ceiling).
+# d2 = |x|^2 - 2 x.c + |c|^2 cancels for a point that is a centroid; its
+# float32 error is a few ulps of |x|^2 + |c|^2 ~ 2 D = 256 (ulp 3e-5), so the
+# d2 check takes 1e-3 here where the D = 5 shapes take 1e-4.
+KMEANS_WIDE_SHAPE = (8, 16_384, 128, 128)   # B, P, D, K
+KMEANS_WIDE_D2_ATOL = 1e-3
+
+# Flash attention: (name, B, Hq, Hkv, S, Dh, dtype, causal); the first is
+# the served prefill of lm_qwen3_4b_serve.
+FLASH_SHAPES = [("served", 4, 32, 8, 2048, 128, "bf16", True),
+                ("served_f32", 4, 32, 8, 2048, 128, "f32", True),
+                ("dh64_15_5", 4, 15, 5, 2048, 64, "bf16", True),
+                ("dh256", 4, 8, 1, 2048, 256, "bf16", True),
+                ("ragged_s1000", 4, 32, 8, 1000, 128, "bf16", True),
+                ("noncausal", 4, 32, 8, 2048, 128, "bf16", False)]
+# (atol, rtol): float32 sums in another order; bf16 the reference's own
+# tolerance for its bf16 flash test (an output rounds to bf16, one step of
+# which is 2^-7 of its value, after P was rounded to bf16 for P V)
+FLASH_TOL = {"f32": (1e-5, 0.0), "bf16": (2e-2, 2e-2)}
+
+# The LM cell: qwen3-4b at full width and depth, batch 4, prompt 2048, 32 tokens.
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-4b", 4, 2048, 32
+LM_PARITY = dict(layers=2, batch=1, prompt=256, gen=4, logit_rtol=1e-3)
 
 
 class CheckFailed(Exception):
@@ -193,8 +234,8 @@ def scratch_dir():
     return tempfile.TemporaryDirectory(dir=ROOT / "build")
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -228,10 +269,10 @@ def phase_build():
     from repro_torch.kernels import _build, bipartite_normalize
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         # one nvcc per source, started together
         cuda = {name: pool.submit(lambda n=name: (_build.build(n), time.perf_counter() - t0))
-                for name in ("kmeans", "spmm", "cosine")}
+                for name in ("kmeans", "spmm", "cosine", "flash_attention")}
         # compile the Triton kernel meanwhile, with the divisibility
         # specialization the main path's shapes get (sizes multiple of 16)
         a = torch.ones((1, 64, 256), device="cuda")
@@ -287,7 +328,7 @@ def _kmeans_inputs(shape, weighted, gen):
     return x, c, w
 
 
-def check_kmeans_update(shape, weighted, gen):
+def check_kmeans_update(shape, weighted, gen, d2_atol: float = 1e-4):
     """The fused Lloyd step against its plain version; returns max |err|."""
     import torch
     from repro_torch.kernels import kmeans_update, ref
@@ -303,8 +344,9 @@ def check_kmeans_update(shape, weighted, gen):
     if w is not None:
         onehot = onehot * w[..., None]
     err = 0.0
-    for mine, theirs in ((d2, rd), (sums, onehot.mT @ x), (counts, onehot.sum(1))):
-        torch.testing.assert_close(mine, theirs, rtol=1e-5, atol=1e-4)
+    for mine, theirs, atol in ((d2, rd, d2_atol), (sums, onehot.mT @ x, 1e-4),
+                               (counts, onehot.sum(1), 1e-4)):
+        torch.testing.assert_close(mine, theirs, rtol=1e-5, atol=atol)
         err = max(err, (mine - theirs).abs().max().item())
     again = kmeans_update.kmeans_update(x, c, w)
     check(all(torch.equal(u, v) for u, v in zip(again, (labels, d2, sums, counts))),
@@ -312,7 +354,7 @@ def check_kmeans_update(shape, weighted, gen):
     return x, c, w, err, frac
 
 
-def kmeans_rows(shape, gen) -> dict:
+def kmeans_rows(shape, gen, d2_atol: float = 1e-4) -> dict:
     """``kmeans_update`` and ``kmeans_assign`` at ``(B, P, D, K)``: checked
     against their plain versions, then timed beside their bounds."""
     import torch
@@ -320,7 +362,7 @@ def kmeans_rows(shape, gen) -> dict:
 
     rows = {}
     b, p, d, k = shape
-    x, c, w, err, frac = check_kmeans_update(shape, False, gen)
+    x, c, w, err, frac = check_kmeans_update(shape, False, gen, d2_atol)
     bms, bby = bound(4 * (b * p * d + b * k * d + 2 * b * p + b * k * d + b * k),
                    b * p * (k * (2 * d + 3) + 2 * d + d + 1))
     rows["kmeans_update"] = dict(
@@ -335,7 +377,7 @@ def kmeans_rows(shape, gen) -> dict:
     rl, rd = ref.kmeans_assign_ref(x, c)
     torch.cuda.synchronize()
     frac = _label_check(x, c, labels, rl)
-    torch.testing.assert_close(d2, rd, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(d2, rd, rtol=1e-5, atol=d2_atol)
     bms, bby = bound(4 * (b * p * d + b * k * d + 2 * b * p), b * p * (k * (2 * d + 3) + 2 * d))
     rows["kmeans_assign"] = dict(
         route="cuda", source="src/repro_torch/kernels/csrc/kmeans.cu",
@@ -685,7 +727,8 @@ def phase_e2e(seed: int):
           f"plan resolved to {plan}, expected {E2E_PLAN}")
     want = {"kmeans_update": plan.t_p * cfg.kmeans_iters,
             "kmeans_assign": plan.t_p, "scale_apply": plan.t_p,
-            "spmm": 0, "spmm_t": 0, "spmm_ata": 0, "cosine_assign": 0, "cosine_topk": 0}
+            "spmm": 0, "spmm_t": 0, "spmm_ata": 0, "cosine_assign": 0, "cosine_topk": 0,
+            "flash_attention": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
     check(row_pred.shape == (E2E_ROWS,) and col_pred.shape == (E2E_COLS,),
           "label shapes")
@@ -835,7 +878,7 @@ def phase_e2e_serve(cell: dict, seed: int, smi: str) -> dict:
         col_nmi_vs_fit=nmi(labels["cols"].cpu().numpy(),
                            res.col_labels[pick].cpu().numpy()))
     want = {"kmeans_update": 0, "kmeans_assign": 0, "scale_apply": 0, "spmm": 0,
-            "spmm_t": 0, "spmm_ata": 0, **calls}
+            "spmm_t": 0, "spmm_ata": 0, "flash_attention": 0, **calls}
     emit("e2e_serve", cell=name, nvidia_smi=smi, model=dict(
         rows=model.n_rows, cols=model.n_cols, k_row=model.n_row_clusters,
         k_col=model.n_col_clusters, q_row=int(model.row_sigs.shape[1]),
@@ -1100,11 +1143,170 @@ def phase_e2e_sparse(a, row_truth, col_truth, seed: int) -> dict:
           f"plan resolved to {plan}, expected {SPARSE_PLAN} route tiled")
     want = {"kmeans_update": cfg.kmeans_iters, "kmeans_assign": 1, "scale_apply": 0,
             "spmm": 1, "spmm_t": 1, "spmm_ata": cfg.svd_iters, "cosine_assign": 0,
-            "cosine_topk": 0}
+            "cosine_topk": 0, "flash_attention": 0}
     check(counts == want, f"launch counts {counts}, expected {want}")
     check(row_pred.shape == (E2E_ROWS,) and col_pred.shape == (E2E_COLS,), "label shapes")
     check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
           f"NMI against the planted truth below 0.8: {scores}")
+    return counts
+
+
+def phase_kernels_kmeans_wide(gen) -> dict:
+    """Both k-means kernels at K = D = 128: several centroid and feature
+    slices per CTA, against their plain versions, then timed."""
+    import torch
+
+    rows = kmeans_rows(KMEANS_WIDE_SHAPE, gen, KMEANS_WIDE_D2_ATOL)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def live_pairs(sq: int, skv: int, causal: bool, kv_len: int | None = None,
+               window: int = 0, q_offset: int = 0) -> int:
+    """(query, key) pairs the mask keeps: the work the attention must do."""
+    import numpy as np
+
+    kv_len = skv if kv_len is None else kv_len
+    qp = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(kv_len, qp + 1) if causal else np.full(sq, kv_len, np.int64)
+    lo = np.maximum(0, qp - window + 1) if window > 0 else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def phase_kernels_flash(gen) -> dict:
+    """The flash kernel against its plain version at FLASH_SHAPES, each timed
+    beside its bound, the plain version and scaled_dot_product_attention."""
+    import torch
+    from repro_torch.kernels import flash_attention, ref
+
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32}
+    row = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:84", max_abs_err=0.0,
+               at_shapes=[])
+    for name, b, hq, hkv, s, dh, dt, causal in FLASH_SHAPES:
+        dtype = dtypes[dt]
+        q = torch.randn((b, hq, s, dh), generator=gen, device="cuda").to(dtype)
+        k = torch.randn((b, hkv, s, dh), generator=gen, device="cuda").to(dtype)
+        v = torch.randn((b, hkv, s, dh), generator=gen, device="cuda").to(dtype)
+        got = flash_attention.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        atol, rtol = FLASH_TOL[dt]
+        check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite output")
+        check(bool((diff <= atol + rtol * want.float().abs()).all()),
+              f"flash {name}: max |err| {err} beyond atol {atol}, rtol {rtol}")
+        again = flash_attention.flash_attention(q, k, v, causal=causal)
+        check(bool(torch.equal(again, got)), f"flash {name} is not deterministic")
+        del got, want, again
+        # bound: q and o at Hq heads, k and v at Hkv heads, each moved once;
+        # 4 Dh flops per live (query, key) pair (two products)
+        elem = q.element_size()
+        nbytes = elem * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)
+        flops = 4.0 * b * hq * dh * live_pairs(s, s, causal)
+        bms, bby = bound(nbytes, flops, BF16_FLOPS if dt == "bf16" else FP32_FLOPS)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+        entry = dict(shape=dict(name=name, B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh, dtype=dt,
+                                causal=causal),
+                     max_abs_err=err, bound_ms=bms, bound_by=bby,
+                     ms=cuda_time(lambda: flash_attention.flash_attention(q, k, v,
+                                                                          causal=causal), 5),
+                     plain_ms=cuda_time(lambda: ref.flash_attention_ref(q, k, v,
+                                                                        causal=causal),
+                                        2, warmup=1),
+                     library_ms=cuda_time(library, 5))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["at_shapes"].append(entry)
+        emit("kernel_check", name="flash_attention", **entry)
+        del q, k, v
+        torch.cuda.empty_cache()
+    main = row["at_shapes"][0]
+    row.update({key: main[key] for key in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms")})
+    emit("kernel", name="flash_attention", **row)
+    return {"flash_attention": row}
+
+
+def phase_parity_lm(seed: int) -> None:
+    """qwen3-4b at full width, cut to LM_PARITY["layers"] layers, float32
+    compute, on the card and on the CPU with the same weights: prefill
+    logits within LM_PARITY["logit_rtol"] of max|logit|, the same greedy
+    tokens."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_PARITY["layers"])
+    host = build_model(cfg, dtype=torch.float32, device="cpu")
+    card = build_model(cfg, dtype=torch.float32, device="cuda")
+    params_host = host.init(seed)
+    params_card = copy.deepcopy(params_host).to("cuda")     # Module.to moves in place
+    prompts = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (LM_PARITY["batch"], LM_PARITY["prompt"])))
+    ops.reset_launch_counts()
+    logits_card, _ = card.prefill(params_card, prompts.cuda())
+    launches = ops.launch_counts()["flash_attention"]
+    logits_host, _ = host.prefill(params_host, prompts)
+    torch.cuda.synchronize()
+    scale = logits_host.abs().max().item()
+    err = (logits_card.cpu() - logits_host).abs().max().item()
+    out_card = serve._generate(card, params_card, prompts.cuda(), LM_PARITY["gen"])
+    out_host = serve._generate(host, params_host, prompts, LM_PARITY["gen"])
+    equal = bool((out_card["tokens"] == out_host["tokens"]).all())
+    emit("parity_lm", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=LM_PARITY["batch"], prompt=LM_PARITY["prompt"], compute="float32",
+         max_abs_logit_err=err, max_abs_logit=scale, flash_launches=launches,
+         tokens_card=out_card["tokens"].tolist(), tokens_cpu=out_host["tokens"].tolist())
+    check(launches == cfg.n_layers, f"parity_lm: {launches} flash launches, expected "
+                                    f"{cfg.n_layers}")
+    check(err <= LM_PARITY["logit_rtol"] * scale,
+          f"parity_lm: logits differ by {err} (> {LM_PARITY['logit_rtol']} x {scale})")
+    check(equal, "parity_lm: greedy tokens on the card differ from the CPU's")
+    check(out_card["logits_finite"] and out_host["logits_finite"], "parity_lm: logits")
+    del params_card
+    torch.cuda.empty_cache()
+
+
+def phase_lm_serve(seed: int, smi: str) -> dict:
+    """The LM cell: full qwen3-4b served through ``launch.serve.generate``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = serve.generate(arch=LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen_len=LM_GEN,
+                         use_reduced=False, seed=seed)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    emit("lm_qwen3_4b_serve", cell="lm_qwen3_4b_serve", nvidia_smi=smi, arch=LM_ARCH,
+         layers=cfg.n_layers, params=cfg.param_count(), batch=LM_BATCH, prompt=LM_PROMPT,
+         gen=LM_GEN, compute="bfloat16", weights="float32 masters + bf16 copy",
+         prefill_ms=out["prefill_s"] * 1e3, decode_s=out["decode_s"],
+         decode_ms_per_step=out["decode_s"] * 1e3 / (LM_GEN - 1),
+         decode_tokens_per_s=out["tokens_per_s"], wall_s=wall,
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+         logits_finite=out["logits_finite"], launches=counts,
+         sample_tokens=out["tokens"][0][:8].tolist())
+    want = {name: 0 for name in counts}
+    want["flash_attention"] = cfg.n_layers        # one prefill: one launch per layer
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(out["tokens"].shape == (LM_BATCH, LM_GEN), f"tokens {out['tokens'].shape}")
+    check(out["logits_finite"], "lm_qwen3_4b_serve: a logit is not finite")
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1148,12 +1350,17 @@ def main() -> int:
         phase_parity_sparse()
         sparse_counts = phase_e2e_sparse(*cell, args.seed)
         del cell
+        torch.cuda.empty_cache()
+        wide_kmeans = phase_kernels_kmeans_wide(gen)
+        rows.update(phase_kernels_flash(gen))
+        phase_parity_lm(args.seed)
+        lm_counts = phase_lm_serve(args.seed, smi)
     except Exception:  # every failure ends the run with a nonzero exit
         traceback.print_exc()
         return 1
     rows.update(sparse_rows)
     cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts,
-             "lamc_dense_131k_serve": serve_counts}
+             "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts}
     summary = []
     for name, row in rows.items():
         # launches: per run of the first cell that launches the kernel
@@ -1164,6 +1371,9 @@ def main() -> int:
             entry["at_sparse_cell"] = {key: sparse_kmeans[name][key] for key in
                                        ("shape", "ms", "plain_ms", "bound_ms", "max_abs_err",
                                         "library_ms")}
+            entry["at_k128_d128"] = {key: wide_kmeans[name][key] for key in
+                                     ("shape", "ms", "plain_ms", "bound_ms", "max_abs_err",
+                                      "library_ms", "label_mismatch")}
         summary.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -111,8 +111,8 @@ def validate_config(cfg: LAMCConfig) -> None:
     _sparse.validate_spmm_impl(cfg.spmm_impl)
     if cfg.atom == "nmtf":
         raise NotImplementedError(
-            "atom='nmtf' is not ported yet: ROADMAP.md queue 1, slice 1 "
-            "item 6 (core/nmtf.py)")
+            "atom='nmtf' is not ported yet: ROADMAP.md queue 1, item 1 "
+            "(core/nmtf.py)")
     if cfg.atom != "scc":
         raise ValueError(f"unknown atom method {cfg.atom!r}")
     if cfg.assignment not in ("hard", "overlap"):

@@ -1,7 +1,9 @@
-"""Carrying plans, random draws and results between the two packages.
+"""Carrying plans, random draws, results and LM weights between the two packages.
 
-The system has no weights: its state is the plan, the random draws and the
-fitted result. JAX's threefry bits cannot be reproduced in torch, so the
+The co-clustering system has no weights: its state is the plan, the random
+draws and the fitted result. The LM substrate's weights come across as the
+reference's ``model.init`` tree read with ``np.asarray``
+(``lm_params_from_numpy``). JAX's threefry bits cannot be reproduced in torch, so the
 tests take the reference's draws as numpy arrays and inject them here. This
 module sees numpy arrays and plain values only; it imports neither JAX nor
 the reference package.
@@ -19,10 +21,12 @@ from .core.lamc import LAMCResult
 from .core.partition import PartitionPlan
 from .device import resolve_device
 from .kernels.spmm import BlockSparseMatrix
+from .models import transformer
 from .streaming.model import CoclusterModel
 
 __all__ = ["Draws", "draws_from_numpy", "plan_from_numpy", "result_to_numpy",
-           "coo_from_numpy", "block_sparse_from_numpy", "model_from_numpy"]
+           "coo_from_numpy", "block_sparse_from_numpy", "model_from_numpy",
+           "lm_params_from_numpy"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,3 +141,52 @@ def model_from_numpy(arrays, device: str | torch.device = "cuda") -> CoclusterMo
         lambda name: getattr(arrays, name))
     return CoclusterModel(*(torch.from_numpy(np.array(get(f))).to(dev)
                             for f in CoclusterModel._fields))
+
+
+def _norm_leaves(prefix: str, tree: Mapping, index=None) -> dict:
+    take = (lambda a: a) if index is None else (lambda a: a[index])
+    return {f"{prefix}.{leaf}": take(tree[leaf]) for leaf in ("scale", "bias") if leaf in tree}
+
+
+def _block_leaves(prefix: str, tree: Mapping, index=None) -> dict:
+    """One ``attn`` block's leaves (``index`` picks it from a stacked unit)."""
+    take = (lambda a: a) if index is None else (lambda a: a[index])
+    attn = tree["attn"]
+    out = {**_norm_leaves(f"{prefix}.ln1", tree["ln1"], index),
+           **_norm_leaves(f"{prefix}.ln2", tree["ln2"], index)}
+    for name in ("wq", "wk", "wv", "wo"):
+        out[f"{prefix}.attn.{name}"] = take(attn[name])
+    for name in ("q_norm", "k_norm"):
+        if name in attn:
+            out.update(_norm_leaves(f"{prefix}.attn.{name}", attn[name], index))
+    for name in ("w_in", "w_gate", "w_out"):
+        out[f"{prefix}.mlp.{name}"] = take(tree["mlp"][name]["w"])
+    return out
+
+
+def lm_params_from_numpy(cfg, params_np: Mapping, device: str | torch.device = "cuda",
+                         param_dtype=torch.float32) -> transformer.Transformer:
+    """The reference's ``model.init(key)`` tree (leaves as numpy arrays) as
+    the port's weights: ``embed.table``, ``final_norm``, the ``units``
+    stacked along a leading ``n_units`` axis (split into the blocks), the
+    ``tail`` blocks after them and the optional ``lm_head``. Matrices are
+    stored in ``param_dtype``, norm scales in float32; every leaf must be
+    used and every weight given."""
+    dev = resolve_device(device)
+    transformer.check_supported(cfg)
+    n_units, tail = transformer.pattern_layout(cfg)
+    leaves = {"embed": params_np["embed"]["table"],
+              **_norm_leaves("final_norm", params_np["final_norm"])}
+    if "lm_head" in params_np:
+        leaves["lm_head"] = params_np["lm_head"]["w"]
+    for i in range(n_units):
+        leaves.update(_block_leaves(f"blocks.{i}", params_np["units"]["0"], i))
+    for j, blk in enumerate(params_np.get("tail", [])[:len(tail)]):
+        leaves.update(_block_leaves(f"blocks.{n_units + j}", blk))
+    params = transformer.Transformer(cfg, device="meta")
+    state = {}
+    for name, value in leaves.items():
+        dtype = torch.float32 if transformer._is_norm(name) else param_dtype
+        state[name] = torch.as_tensor(np.array(value, dtype=np.float32), device=dev).to(dtype)
+    params.load_state_dict(state, strict=True, assign=True)
+    return params

@@ -31,7 +31,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of each library's entry points: name -> (restype, argtypes).
 _SIGNATURES = {
     "kmeans": {
-        "kmeans_tile": (_I, [_I, _I, _I]),
+        "kmeans_tile": (_I, []),
         "kmeans_error_string": (ctypes.c_char_p, [_I]),
         "kmeans_assign_f32": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
         "kmeans_update_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
@@ -40,7 +40,13 @@ _SIGNATURES = {
     "cosine": {
         "cosine_error_string": (ctypes.c_char_p, [_I]),
         "cosine_max_k": (_I, []),
-        "cosine_topk_f32": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+        "cosine_topk_f32": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P]),
+    },
+    "flash_attention": {
+        "flash_error_string": (ctypes.c_char_p, [_I]),
+        "flash_max_head_dim": (_I, []),
+        "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _I, _I, ctypes.c_float, _P]),
     },
     "spmm": {
         "spmm_error_string": (ctypes.c_char_p, [_I]),

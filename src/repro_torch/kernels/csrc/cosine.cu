@@ -34,7 +34,12 @@
 //     at and beyond it are never read.
 //   * the (kTileP, K) score tile stays in shared memory for the k_top
 //     rounds: eight lanes per point scan its row and reduce (score, id) by
-//     shuffles, all 32 points at once. No score ever goes to device memory.
+//     shuffles, all 32 points at once. No score goes to device memory while
+//     the tile fits in a CTA's shared memory (K <= cosine_max_k(), about
+//     1,800). Above that the caller passes a (P, K) scratch and the tile
+//     lives there instead (the L2 holds it between the products and the
+//     selection); the passes, the selection and so the results are the same,
+//     so K has no ceiling, as in the reference's wrapper.
 //   * each (point, signature) score is one fmaf chain over ascending
 //     features, starting from 0, whatever the tile (the features past q in
 //     the last staged slice are zeros, and fmaf(0, 0, a) == a), so results
@@ -69,8 +74,8 @@ constexpr int kStaging = kChunkQ * (kStrideX + kStrideS);   // floats
 constexpr size_t kSmemLimit = 232448;   // a CTA's opt-in maximum on sm_90
 constexpr int kMaxDevices = 64;
 
-size_t smem_bytes(int K) {
-  return sizeof(float) * ((size_t)kTileP * (K + 1) + kStaging);
+size_t smem_bytes(int K, bool spill) {
+  return sizeof(float) * ((spill ? 0 : (size_t)kTileP * (K + 1)) + kStaging);
 }
 
 // A score as an unsigned key in the order of a stable descending sort:
@@ -90,14 +95,15 @@ __device__ __forceinline__ float key_score(unsigned key) {
 __global__ void __launch_bounds__(kThreads)
 cosine_topk_kernel(const float* __restrict__ x, const float* __restrict__ s,
                    int P, int Q, int K, int k_top, int* __restrict__ labels,
-                   float* __restrict__ scores) {
+                   float* __restrict__ scores, float* spill) {
   extern __shared__ __align__(16) float smem[];
-  const int ks = K + 1;
-  float* sc = smem;                          // [kTileP][K + 1] scores
-  float* xs = sc + (size_t)kTileP * ks;      // [kChunkQ][kStrideX] point slice
+  float* xs = smem;                          // [kChunkQ][kStrideX] point slice
   float* ss = xs + kChunkQ * kStrideX;       // [kChunkQ][kStrideS] signature slice
   const int t = threadIdx.x;
   const size_t p0 = (size_t)blockIdx.x * kTileP;
+  // [kTileP][ks] scores: in shared memory, or this tile's rows of the spill
+  const int ks = spill ? K : K + 1;
+  float* sc = spill ? spill + p0 * K : ss + kChunkQ * kStrideS;
   const long long left = (long long)P - (long long)p0;
   const int np = left < kTileP ? (int)left : kTileP;   // points in this tile
   const int warp = t >> 5, lane = t & 31;
@@ -214,24 +220,27 @@ const char* cosine_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// The most signatures one launch takes: the (kTileP, K) score tile and the
-// two staged slices must fit in a CTA's shared memory.
+// The most signatures whose score tile fits in shared memory: the (kTileP,
+// K) tile and the two staged slices must fit in a CTA's shared memory.
 int cosine_max_k(void) {
   return (int)((kSmemLimit / sizeof(float) - (size_t)kStaging) / kTileP) - 1;
 }
 
 // x (P,Q), s (K,Q) -> labels (P,k_top) int32, scores (P,k_top), descending.
-// K is the caller's k_valid: only the first K rows of s are read.
+// K is the caller's k_valid: only the first K rows of s are read. spill is
+// null, or a (P, K) float32 scratch that holds the score tiles; it is needed
+// when K > cosine_max_k().
 int cosine_topk_f32(const float* x, const float* s, int P, int Q, int K, int k_top,
-                    int* labels, float* scores, void* stream) {
+                    int* labels, float* scores, float* spill, void* stream) {
   if (P < 1 || Q < 1 || K < 1 || k_top < 1 || k_top > K)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(K);
+  const size_t smem = smem_bytes(K, spill != nullptr);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   // Raise the kernel's dynamic shared-memory limit once per device and
   // larger size, so steady-state launches (and launches captured in a CUDA
-  // graph) make no attribute call. Racing threads at worst set the same
-  // value twice.
+  // graph) make no attribute call. The limit is an attribute of the current
+  // device, the one the launch goes to: the wrapper makes the tensors'
+  // device current first. Racing threads at worst set the same value twice.
   static size_t opted_in[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -245,7 +254,7 @@ int cosine_topk_f32(const float* x, const float* s, int P, int Q, int K, int k_t
   }
   const unsigned grid = (unsigned)(((size_t)P + kTileP - 1) / kTileP);
   cosine_topk_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, s, P, Q, K, k_top, labels, scores);
+      x, s, P, Q, K, k_top, labels, scores, spill);
   return static_cast<int>(cudaGetLastError());
 }
 

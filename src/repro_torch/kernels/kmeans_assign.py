@@ -27,11 +27,7 @@ import torch
 
 from . import _build
 
-__all__ = ["kmeans_assign", "check_points", "MAX_D", "MAX_K", "cosine_assign",
-           "cosine_topk"]
-
-MAX_D = 64
-MAX_K = 64
+__all__ = ["kmeans_assign", "check_points", "cosine_assign", "cosine_topk"]
 
 #: Launches of the k-means assignment kernel since the counter was last set to 0.
 launches = 0
@@ -45,7 +41,8 @@ _cosine_lock = threading.Lock()
 
 def check_points(x: torch.Tensor, centroids: torch.Tensor,
                  weights: torch.Tensor | None = None) -> None:
-    """Raise unless the operands are what the CUDA k-means kernels take."""
+    """Raise unless the operands are what the CUDA k-means kernels take (any
+    K and D, as the reference's wrapper)."""
     if x.ndim != 3 or centroids.ndim != 3:
         raise ValueError(f"expected x (B, P, D) and centroids (B, K, D), got "
                          f"{tuple(x.shape)} and {tuple(centroids.shape)}")
@@ -54,9 +51,9 @@ def check_points(x: torch.Tensor, centroids: torch.Tensor,
         raise ValueError(f"centroids {tuple(centroids.shape)} do not match x "
                          f"{tuple(x.shape)}")
     k = centroids.shape[1]
-    if not (1 <= d <= MAX_D and 1 <= k <= MAX_K and b >= 1 and p >= 1):
-        raise ValueError(f"kernel takes B, P >= 1, 1 <= D <= {MAX_D} and "
-                         f"1 <= K <= {MAX_K}; got B={b} P={p} D={d} K={k}")
+    if min(b, p, d, k) < 1 or b > 65535:
+        raise ValueError(f"kernel takes 1 <= B <= 65535 and P, D, K >= 1; got "
+                         f"B={b} P={p} D={d} K={k}")
     if weights is not None and tuple(weights.shape) != (b, p):
         raise ValueError(f"weights must be (B, P) = {(b, p)}, got "
                          f"{tuple(weights.shape)}")
@@ -84,9 +81,10 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     k = centroids.shape[1]
     labels = torch.empty((b, p), dtype=torch.int32, device=x.device)
     d2 = torch.empty((b, p), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.kmeans_assign_f32(x.data_ptr(), centroids.data_ptr(), b, p, d, k,
-                                labels.data_ptr(), d2.data_ptr(), stream)
+    with torch.cuda.device(x.device):
+        err = lib.kmeans_assign_f32(x.data_ptr(), centroids.data_ptr(), b, p, d, k,
+                                    labels.data_ptr(), d2.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
     raise_on_error(lib, err, "kmeans_assign")
     launches += 1
     return labels, d2
@@ -110,21 +108,22 @@ def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32")
     lib = _build.load("cosine")
-    max_k = lib.cosine_max_k()
-    if k_valid > max_k:
-        raise ValueError(f"the cosine kernel takes at most K = {max_k} signatures "
-                         f"(the score tile must fit in shared memory); got "
-                         f"K={k_valid}")
     p, q = x.shape
     labels = torch.empty((p, k), dtype=torch.int32, device=x.device)
     scores = torch.empty((p, k), dtype=torch.float32, device=x.device)
     if p == 0:
         return labels, scores
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # above cosine_max_k() signatures the score tiles no longer fit in shared
+    # memory and live in this scratch instead
+    spill = (torch.empty((p, k_valid), dtype=torch.float32, device=x.device)
+             if k_valid > lib.cosine_max_k() else None)
     # the kernel reads only the first k_valid signature rows: the rows the
     # reference masks to -inf are never scored
-    err = lib.cosine_topk_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid, k,
-                              labels.data_ptr(), scores.data_ptr(), stream)
+    with torch.cuda.device(x.device):
+        err = lib.cosine_topk_f32(x.data_ptr(), signatures.data_ptr(), p, q, k_valid, k,
+                                  labels.data_ptr(), scores.data_ptr(),
+                                  None if spill is None else spill.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{counter} launch failed: "
                            f"{lib.cosine_error_string(err).decode()}")

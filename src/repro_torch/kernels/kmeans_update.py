@@ -29,7 +29,7 @@ def kmeans_update(x: torch.Tensor, centroids: torch.Tensor,
     lib = _build.load("kmeans")
     b, p, d = x.shape
     k = centroids.shape[1]
-    tiles = -(-p // lib.kmeans_tile(d, k, 1))
+    tiles = -(-p // lib.kmeans_tile())
     dev = x.device
     labels = torch.empty((b, p), dtype=torch.int32, device=dev)
     d2 = torch.empty((b, p), dtype=torch.float32, device=dev)
@@ -37,12 +37,12 @@ def kmeans_update(x: torch.Tensor, centroids: torch.Tensor,
     pcounts = torch.empty((tiles, b, k), dtype=torch.float32, device=dev)
     sums = torch.empty((b, k, d), dtype=torch.float32, device=dev)
     counts = torch.empty((b, k), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.kmeans_update_f32(
-        x.data_ptr(), centroids.data_ptr(),
-        None if weights is None else weights.data_ptr(), b, p, d, k,
-        labels.data_ptr(), d2.data_ptr(), psums.data_ptr(), pcounts.data_ptr(),
-        sums.data_ptr(), counts.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        err = lib.kmeans_update_f32(
+            x.data_ptr(), centroids.data_ptr(),
+            None if weights is None else weights.data_ptr(), b, p, d, k,
+            labels.data_ptr(), d2.data_ptr(), psums.data_ptr(), pcounts.data_ptr(),
+            sums.data_ptr(), counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
     raise_on_error(lib, err, "kmeans_update")
     launches += 1
     return labels, d2, sums, counts

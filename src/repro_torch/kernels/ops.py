@@ -7,7 +7,8 @@ error, so a run on the card either went through the kernels or failed.
 
 The k-means and scale operands are batched over a leading block dimension
 ``B`` — the port's form of the reference's ``vmap`` over the block stack.
-The cosine scorers take one ``(P, q)`` batch of requests.
+The cosine scorers take one ``(P, q)`` batch of requests; flash attention
+takes ``(B, H, S, Dh)`` heads, as the LM's attention does.
 The SpMM family takes one tile-level sparse matrix
 (``spmm.BlockSparseMatrix``); ``spmm`` and ``sddmm`` on a COO tensor have
 no TPU kernel in the reference either and stay plain PyTorch.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import bipartite_normalize as _scale
+from . import flash_attention as _flash
 from . import kmeans_assign as _assign
 from . import kmeans_update as _update
 from . import ref
@@ -25,7 +27,8 @@ from . import spmm as _spmm
 
 __all__ = ["kmeans_assign", "kmeans_update", "cosine_assign", "cosine_topk",
            "bipartite_normalize", "spmm", "sddmm", "spmm_tiled", "spmm_ata",
-           "tiled_scale_fusion", "launch_counts", "reset_launch_counts"]
+           "tiled_scale_fusion", "flash_attention", "launch_counts",
+           "reset_launch_counts"]
 
 # Kernel name -> (module, counter attribute, key in that attribute or None
 # when it is a plain integer).
@@ -36,7 +39,8 @@ _KERNELS = {"kmeans_update": (_update, "launches", None),
             "scale_apply": (_scale, "launches", None),
             "spmm": (_spmm, "launches", "spmm"),
             "spmm_t": (_spmm, "launches", "spmm_t"),
-            "spmm_ata": (_spmm, "launches", "spmm_ata")}
+            "spmm_ata": (_spmm, "launches", "spmm_ata"),
+            "flash_attention": (_flash, "launches", None)}
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -158,6 +162,27 @@ def spmm_ata(a: _spmm.BlockSparseMatrix, x: torch.Tensor, *,
     if _on_cuda(x):
         return _spmm.spmm_ata(a, x.contiguous(), with_gram=with_gram)
     return ref.spmm_ata_ref(a, x, with_gram=with_gram)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, kv_len: int | None = None, window: int = 0,
+                    q_offset: int = 0, chunk_size: int = 1024) -> torch.Tensor:
+    """Softmax attention of ``q (B, Hq, Sq, Dh)`` over ``k, v (B, Hkv, Skv,
+    Dh)`` (``Hq`` a multiple of ``Hkv``): the function of the reference's
+    ``chunked_causal_attention`` with a ``causal`` switch and a ``kv_len``
+    mask. On the card the kernel reads each query head's kv head directly
+    and ``chunk_size`` only sets the value of a row with no live key; on
+    the CPU the plain version walks KV chunks of ``chunk_size``."""
+    if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape[1] < 1 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"GQA heads mismatch: {q.shape[1]} % {k.shape[1]}")
+    kw = dict(causal=causal, kv_len=kv_len, window=window, q_offset=q_offset,
+              chunk_size=chunk_size)
+    if _on_cuda(q):
+        return _flash.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    return ref.flash_attention_ref(q, k, v, **kw)
 
 
 def launch_counts() -> dict[str, int]:

@@ -3,7 +3,7 @@
 Each function computes what its hand-written kernel computes: the k-means and
 scale kernels batched over a leading block dimension ``B``, the cosine
 scorers on one ``(P, q)`` request batch, the SpMM family on one tile-level
-sparse matrix. ``ops.py`` runs them for tensors that lie on
+sparse matrix, flash attention on ``(B, H, S, Dh)`` heads. ``ops.py`` runs them for tensors that lie on
 the CPU; on the card they are the oracle the tests and ``chip_smoke.py``
 hold the kernels against. They mirror the reference package's
 ``kernels/ref.py`` oracles.
@@ -16,7 +16,7 @@ import torch
 __all__ = ["kmeans_assign_ref", "kmeans_update_ref", "cosine_assign_ref",
            "cosine_topk_ref", "scale_apply_ref",
            "bipartite_normalize_ref", "spmm_ref", "spmm_block_ref", "sddmm_ref",
-           "spmm_tiled_ref", "spmm_ata_ref"]
+           "spmm_tiled_ref", "spmm_ata_ref", "flash_attention_ref"]
 
 
 def kmeans_assign_ref(x: torch.Tensor, centroids: torch.Tensor):
@@ -166,3 +166,54 @@ def spmm_ata_ref(a, x: torch.Tensor, with_gram: bool = False):
     a = a.materialize_scales()
     z = spmm_tiled_ref(a, spmm_tiled_ref(a, x), transpose=True)
     return (z, z.T @ z) if with_gram else z
+
+
+_NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, kv_len: int | None = None, window: int = 0,
+                        q_offset: int = 0, chunk_size: int = 1024) -> torch.Tensor:
+    """Softmax attention of ``q (B, Hq, Sq, Dh)`` over ``k, v (B, Hkv, Skv,
+    Dh)``, step by step as the reference's ``chunked_causal_attention``
+    (``src/repro/models/attention.py:37``): KV heads repeated to ``Hq``, KV
+    chunks of ``chunk_size`` (the last one zero-padded), scores
+    ``(q . k) / sqrt(Dh)`` in float32 with masked entries set to ``-1e30``,
+    a running max, normalizer and accumulator, then ``acc / max(l, 1e-30)``
+    in q's dtype. A key is live if its position is below ``kv_len`` (``Skv``
+    by default), with ``causal`` at most the query's position ``q_offset +
+    i``, and with ``window > 0`` less than ``window`` behind it."""
+    b, hq, sq, dh = q.shape
+    skv = k.shape[2]
+    kv_len = skv if kv_len is None else kv_len
+    if k.shape[1] != hq:
+        rep = hq // k.shape[1]
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    scale = 1.0 / (dh ** 0.5)
+    dev = q.device
+    q_pos = q_offset + torch.arange(sq, device=dev)
+    qf = q.to(torch.float32)
+    m = torch.full((b, hq, sq), _NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, hq, sq, dh), dtype=torch.float32, device=dev)
+    for c0 in range(0, skv, chunk_size):
+        pad = max(0, c0 + chunk_size - skv)
+        k_i = torch.nn.functional.pad(k[:, :, c0:c0 + chunk_size].to(torch.float32),
+                                      (0, 0, 0, pad))
+        v_i = torch.nn.functional.pad(v[:, :, c0:c0 + chunk_size].to(torch.float32),
+                                      (0, 0, 0, pad))
+        k_pos = c0 + torch.arange(chunk_size, device=dev)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, k_i) * scale
+        mask = (k_pos < kv_len)[None, :]
+        if causal:
+            mask = mask & (q_pos[:, None] >= k_pos[None, :])
+        if window > 0:
+            mask = mask & (q_pos[:, None] - k_pos[None, :] < window)
+        s = torch.where(mask, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v_i)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)

@@ -326,10 +326,11 @@ def spmm(a: BlockSparseMatrix, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, r), dtype=torch.float32, device=b.device)
     part = torch.empty((split, m, r) if split > 1 else (1,), dtype=torch.float32,
                        device=b.device)
-    err = lib.spmm_f32(a.blocks.data_ptr(), a.block_cols.data_ptr(),
-                       row_ptr.data_ptr(), rs, cs, n_tr, n_tc, bm, bk,
-                       b.data_ptr(), k, r, out.data_ptr(), m, split,
-                       part.data_ptr(), torch.cuda.current_stream(b.device).cuda_stream)
+    with torch.cuda.device(b.device):
+        err = lib.spmm_f32(a.blocks.data_ptr(), a.block_cols.data_ptr(),
+                           row_ptr.data_ptr(), rs, cs, n_tr, n_tc, bm, bk,
+                           b.data_ptr(), k, r, out.data_ptr(), m, split,
+                           part.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "spmm")
     launches["spmm"] += 1
     return out
@@ -348,11 +349,11 @@ def spmm_t(a: BlockSparseMatrix, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((k, r), dtype=torch.float32, device=b.device)
     part = torch.empty((split, k, r) if split > 1 else (1,), dtype=torch.float32,
                        device=b.device)
-    err = lib.spmm_t_f32(a.blocks.data_ptr(), a.block_rows.data_ptr(),
-                         a.t_order.data_ptr(), col_ptr.data_ptr(), rs, cs, n_tr,
-                         n_tc, bm, bk, b.data_ptr(), m, r, out.data_ptr(), k, split,
-                         part.data_ptr(),
-                         torch.cuda.current_stream(b.device).cuda_stream)
+    with torch.cuda.device(b.device):
+        err = lib.spmm_t_f32(a.blocks.data_ptr(), a.block_rows.data_ptr(),
+                             a.t_order.data_ptr(), col_ptr.data_ptr(), rs, cs, n_tr,
+                             n_tc, bm, bk, b.data_ptr(), m, r, out.data_ptr(), k, split,
+                             part.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "spmm_t")
     launches["spmm_t"] += 1
     return out
@@ -378,12 +379,13 @@ def spmm_ata(a: BlockSparseMatrix, x: torch.Tensor, with_gram: bool = False):
     part_t = empty(split_t, k, r) if split_t > 1 else empty(1)
     gram = empty(r, r) if with_gram else None
     gram_part = empty(GRAM_CHUNKS, r, r) if with_gram else None
-    err = lib.spmm_ata_f32(
-        a.blocks.data_ptr(), a.block_rows.data_ptr(), a.block_cols.data_ptr(),
-        a.t_order.data_ptr(), row_ptr.data_ptr(), col_ptr.data_ptr(), rs, cs,
-        n_tr, n_tc, bm, bk, x.data_ptr(), m, k, r, y.data_ptr(), out.data_ptr(),
-        split_f, part_f.data_ptr(), split_t, part_t.data_ptr(), _ptr(gram),
-        _ptr(gram_part), GRAM_CHUNKS, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.spmm_ata_f32(
+            a.blocks.data_ptr(), a.block_rows.data_ptr(), a.block_cols.data_ptr(),
+            a.t_order.data_ptr(), row_ptr.data_ptr(), col_ptr.data_ptr(), rs, cs,
+            n_tr, n_tc, bm, bk, x.data_ptr(), m, k, r, y.data_ptr(), out.data_ptr(),
+            split_f, part_f.data_ptr(), split_t, part_t.data_ptr(), _ptr(gram),
+            _ptr(gram_part), GRAM_CHUNKS, torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "spmm_ata")
     launches["spmm_ata"] += 1
     return (out, gram) if with_gram else out

@@ -7,6 +7,8 @@ machine that has only PyTorch::
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +48,10 @@ def _label_agreement(x, c, labels, want):
     (128, 10240, 5, 16, False),      # the atom k-means at the chip cell's plan
     (4, 2048, 64, 16, True),         # the merge k-means shape, weighted
     (3, 1000, 7, 13, True),          # ragged tile, odd widths
+    (2, 3000, 5, 65, True),          # K above one centroid slice, no ceiling
+    (2, 3000, 5, 128, False),
+    (2, 3000, 65, 16, True),         # D above one feature slice
+    (2, 3000, 128, 128, False),
 ])
 def test_cuda_kmeans_kernels_match_plain(b, p, d, k, weighted):
     dev = _card()
@@ -115,7 +121,7 @@ def test_lamc_on_the_card_matches_the_cpu_path():
     assert ops.launch_counts() == {"kmeans_update": 2 * 16, "kmeans_assign": 2,
                                    "scale_apply": 2, "spmm": 0, "spmm_t": 0,
                                    "spmm_ata": 0, "cosine_assign": 0,
-                                   "cosine_topk": 0}
+                                   "cosine_topk": 0, "flash_attention": 0}
     host = lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws, device="cpu")
     assert card.row_labels.is_cuda
     for side in ("row", "col"):
@@ -318,6 +324,9 @@ def test_cuda_cosine_kernels_order_non_finite_scores_as_plain():
 
 @pytest.mark.gpu
 def test_cuda_cosine_zero_rows_and_limits():
+    """A zero-row batch launches nothing; above the signatures whose score
+    tile fits in shared memory the kernel scores into a scratch in device
+    memory and still gives the plain version's labels (no ceiling on K)."""
     dev = _card()
     from repro_torch.kernels import _build, kmeans_assign
 
@@ -327,9 +336,12 @@ def test_cuda_cosine_zero_rows_and_limits():
     assert labels.shape == (0, 2) and ops.launch_counts()["cosine_topk"] == 0
     max_k = _build.load("cosine").cosine_max_k()
     assert max_k >= 1024
-    with pytest.raises(ValueError, match=f"at most K = {max_k}"):
-        kmeans_assign.cosine_assign(torch.ones((2, 8), device=dev),
-                                    torch.ones((max_k + 1, 8), device=dev))
+    for k, k_top in ((max_k + 1, 3), (4000, 1)):
+        x, sigs = _cosine_inputs(k, 300, 64, k, dev)
+        top, top_s = kmeans_assign.cosine_topk(x, sigs, k_top)
+        _check_scores(x, sigs, top, top_s, *ref.cosine_topk_ref(x, sigs, k_top))
+        labels, score = kmeans_assign.cosine_assign(x, sigs)
+        assert torch.equal(top[:, 0], labels) and torch.equal(top_s[:, 0], score)
 
 
 @pytest.mark.gpu
@@ -362,3 +374,127 @@ def test_serving_on_the_card_matches_the_cpu_path(tmp_path):
         tickets = [svc.submit(pc.matrix[i:i + 5]) for i in range(0, 40, 5)]
         got = np.concatenate([t.result(timeout=60.0).labels for t in tickets])
     np.testing.assert_array_equal(got, streaming.assign_rows(host, pc.matrix[:40]).labels)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernel 9) and the LM serving path
+# ---------------------------------------------------------------------------
+
+FLASH_F32_ATOL = 1e-5    # float32: the same sums in another order
+FLASH_BF16_TOL = 2e-2    # bf16: the reference's own (atol and rtol) for its bf16 test
+
+
+def _flash_inputs(seed, b, hq, hkv, sq, skv, dh, dtype, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, hq, sq, dh), generator=gen, device=dev).to(dtype)
+    k = torch.randn((b, hkv, skv, dh), generator=gen, device=dev).to(dtype)
+    v = torch.randn((b, hkv, skv, dh), generator=gen, device=dev).to(dtype)
+    return q, k, v
+
+
+# (B, Hq, Hkv, Sq, Skv, Dh, options) of the flash checks, grouped by what
+# they exercise
+FLASH_CASES = {
+    "head_widths": [(1, 4, 2, 64, 64, 16, {}), (1, 4, 2, 100, 100, 64, {}),
+                    (1, 4, 2, 100, 100, 128, {}), (1, 4, 2, 100, 100, 256, {})],
+    "heads_and_lengths": [
+        (1, 32, 8, 2048, 2048, 128, {}),                    # the served prefill's heads
+        (1, 15, 5, 100, 100, 64, {}),                       # smollm's heads
+        (1, 15, 5, 160, 160, 64, dict(causal=False)),
+        (2, 3, 1, 1, 77, 128, dict(q_offset=76))],          # one query row
+    "masks": [(1, 4, 2, 37, 300, 128, dict(q_offset=263)),  # prefill continuation
+              (1, 4, 4, 200, 200, 64, dict(window=48)),
+              (1, 4, 2, 64, 100, 64, dict(kv_len=70, causal=False)),
+              (1, 2, 2, 50, 130, 32, dict(window=8, q_offset=200))],  # rows with no live key
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", sorted(FLASH_CASES))
+def test_cuda_flash_attention_matches_plain(group):
+    """Each case in float32 (the float32-pipe kernel) and bf16 (the
+    tensor-core kernel where Dh % 8 == 0 and Dh <= 128)."""
+    dev = _card()
+    from repro_torch.kernels import flash_attention
+
+    for (b, hq, hkv, sq, skv, dh, kw), dtype in itertools.product(
+            FLASH_CASES[group], (torch.float32, torch.bfloat16)):
+        tol = ((0, FLASH_F32_ATOL) if dtype == torch.float32
+               else (FLASH_BF16_TOL, FLASH_BF16_TOL))
+        q, k, v = _flash_inputs(sq + skv + dh, b, hq, hkv, sq, skv, dh, dtype, dev)
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, **kw)
+        assert ops.launch_counts()["flash_attention"] == 1 and flash_attention.launches == 1
+        want = ref.flash_attention_ref(q, k, v, **kw)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1],
+                                   msg=lambda m: f"{(b, hq, hkv, sq, skv, dh, kw, dtype)}: {m}")
+        assert torch.equal(ops.flash_attention(q, k, v, **kw), got)   # deterministic
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_rejects_what_it_cannot_take():
+    dev = _card()
+    q, k, v = _flash_inputs(0, 1, 2, 2, 8, 8, 16, torch.float32, dev)
+    with pytest.raises(ValueError, match="Dh <="):
+        ops.flash_attention(*_flash_inputs(0, 1, 2, 2, 8, 8, 320, torch.float32, dev))
+    with pytest.raises(ValueError, match="like q"):
+        ops.flash_attention(q, k.to(torch.bfloat16), v)
+    ops.reset_launch_counts()
+    empty = ops.flash_attention(q[:, :, :0], k, v)
+    assert empty.shape == (1, 2, 0, 16) and ops.launch_counts()["flash_attention"] == 0
+
+
+@pytest.mark.gpu
+def test_lm_on_the_card_matches_the_cpu_path():
+    """A reduced qwen3 served on the card (prefill through the flash kernel)
+    and on the CPU with the same weights, in float32 compute: the same
+    greedy tokens, and one flash launch per layer per prefill."""
+    dev = _card()
+    from repro_torch.configs import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model
+
+    cfg = reduced("qwen3-4b")
+    host_model = build_model(cfg, dtype=torch.float32, device="cpu")
+    params = host_model.init(0)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70)))
+    host = serve._generate(host_model, params, prompts, 6)
+    ops.reset_launch_counts()
+    card = serve._generate(build_model(cfg, dtype=torch.float32, device=dev),
+                           params.to(dev), prompts.to(dev), 6)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    np.testing.assert_array_equal(card["tokens"], host["tokens"])
+    assert card["logits_finite"]
+
+
+@pytest.mark.gpu
+def test_kernels_launch_on_the_tensors_device():
+    """Every wrapper makes its tensors' device current: with cuda:0 current,
+    tensors on cuda:1 give the plain version's results. Needs two cards."""
+    _card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (launch on cuda:1 while cuda:0 is current)")
+    from repro_torch.kernels import bipartite_normalize, kmeans_assign, kmeans_update
+
+    dev = torch.device("cuda:1")
+    torch.cuda.set_device(0)
+    x, c, w = (torch.from_numpy(a).to(dev) for a in _points(3, 2, 700, 70, 70))
+    labels, d2 = kmeans_assign.kmeans_assign(x, c)
+    _label_agreement(x, c, labels, ref.kmeans_assign_ref(x, c)[0])
+    ul, _, us, _ = kmeans_update.kmeans_update(x, c, w)
+    assert torch.equal(ul, labels) and us.device == dev
+    xs, sigs = _cosine_inputs(3, 300, 64, 2000, dev)
+    _check_scores(xs, sigs, *kmeans_assign.cosine_topk(xs, sigs, 2),
+                  *ref.cosine_topk_ref(xs, sigs, 2))
+    a = torch.randn((2, 65, 130), device=dev)
+    s1, s2 = torch.rand((2, 65), device=dev), torch.rand((2, 130), device=dev)
+    assert torch.equal(bipartite_normalize.scale_apply(a, s1, s2), ref.scale_apply_ref(a, s1, s2))
+    ta, _ = _tiled(5, 300, 200, 0.2, 64, 64, dev)
+    rhs = torch.randn((200, 3), device=dev)
+    _spmm_close(spmm.spmm(ta, rhs), ref.spmm_tiled_ref(ta, rhs))
+    q, k, v = _flash_inputs(1, 1, 4, 2, 100, 100, 64, torch.bfloat16, dev)
+    torch.testing.assert_close(ops.flash_attention(q, k, v).float(),
+                               ref.flash_attention_ref(q, k, v).float(), rtol=FLASH_BF16_TOL,
+                               atol=FLASH_BF16_TOL)
+    assert torch.cuda.current_device() == 0

@@ -8,9 +8,11 @@ import pytest
 import torch
 
 from repro_torch import checkpoint, interop, streaming
+from repro_torch.configs import reduced
 from repro_torch.core import kmeans, lamc, spectral
 from repro_torch.data import to_bcoo
-from repro_torch.launch import serve_lamc
+from repro_torch.launch import profile_serve, serve, serve_lamc
+from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -35,7 +37,8 @@ def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"lamc.py", "ops.py", "interop.py", "chip_smoke.py", "checkpoint.py",
             "model.py", "assign.py", "registry.py", "serve.py", "serve_lamc.py",
-            "metrics.py", "trace.py", "export.py"} <= names
+            "metrics.py", "trace.py", "export.py", "transformer.py", "attention.py",
+            "flash_attention.py", "layers.py", "base.py", "qwen3_4b.py"} <= names
 
 
 def _model(a):
@@ -63,6 +66,10 @@ def _model(a):
     lambda a: serve_lamc.serve_service("no-such-dir"),
     lambda a: checkpoint.restore("no-such-dir", 0, {}),
     lambda a: interop.model_from_numpy(_model(a)._asdict()),
+    lambda a: build_model(reduced("qwen3-4b")),
+    lambda a: serve.generate(arch="qwen3-4b", batch=1, prompt_len=4, gen_len=2),
+    lambda a: interop.lm_params_from_numpy(reduced("qwen3-4b"), {}),
+    lambda a: profile_serve.profile_serve(prompt_len=4),
 ])
 def test_entry_points_default_to_the_card(monkeypatch, call):
     """Without ``device=`` an entry point asks for CUDA; on a machine without

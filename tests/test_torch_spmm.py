@@ -247,7 +247,7 @@ def test_cpu_operands_never_reach_the_cuda_wrappers():
     assert ops.launch_counts() == {"kmeans_update": 0, "kmeans_assign": 0,
                                    "scale_apply": 0, "spmm": 0, "spmm_t": 0,
                                    "spmm_ata": 0, "cosine_assign": 0,
-                                   "cosine_topk": 0}
+                                   "cosine_topk": 0, "flash_attention": 0}
     for call in (lambda: spmm.spmm(t, x), lambda: spmm.spmm_t(t, torch.ones((150, 3))),
                  lambda: spmm.spmm_ata(t, x)):
         with pytest.raises(ValueError, match="CUDA device"):
