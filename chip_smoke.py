@@ -60,10 +60,13 @@ Phases, each printing one JSON line:
    centroid and one feature slice, against their plain versions, timed.
 13. ``kernel`` (flash): the flash-attention kernel at the served prefill's
    shape (B = 4, Hq = 32, Hkv = 8, S = 2048, Dh = 128, bf16), the same in
-   float32, Dh = 64 (15/5 heads), Dh = 256, a ragged S = 1000 and
-   non-causal, against its plain version, then timed (CUDA events) beside its
-   bound, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it).
+   float32, Dh = 64 (15/5 heads), Dh = 256, a ragged S = 1000, non-causal
+   and recurrentgemma-2b's windowed local attention (10/1 heads, Dh = 256,
+   window 2,048, S = 4,096), against its plain version, each through the
+   kernel its dtype must take (``wgmma`` for bf16, ``f32_pipe`` for
+   float32), then timed (CUDA events) beside its bound, the plain version
+   and ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it).
 14. ``parity_lm``: qwen3-4b at full width, depth cut to 2 layers, B = 1,
    S = 256, float32 compute, on the card (the kernel) and on the CPU (the
    plain version) with the same weights: prefill logits within 1e-3 of
@@ -142,14 +145,20 @@ SERVICE_REQUESTS = 256
 KMEANS_WIDE_SHAPE = (8, 16_384, 128, 128)   # B, P, D, K
 KMEANS_WIDE_D2_ATOL = 1e-3
 
-# Flash attention: (name, B, Hq, Hkv, S, Dh, dtype, causal); the first is
-# the served prefill of lm_qwen3_4b_serve.
-FLASH_SHAPES = [("served", 4, 32, 8, 2048, 128, "bf16", True),
-                ("served_f32", 4, 32, 8, 2048, 128, "f32", True),
-                ("dh64_15_5", 4, 15, 5, 2048, 64, "bf16", True),
-                ("dh256", 4, 8, 1, 2048, 256, "bf16", True),
-                ("ragged_s1000", 4, 32, 8, 1000, 128, "bf16", True),
-                ("noncausal", 4, 32, 8, 2048, 128, "bf16", False)]
+# Flash attention: (name, B, Hq, Hkv, S, Dh, dtype, causal, window); the
+# first is the served prefill of lm_qwen3_4b_serve, the last
+# recurrentgemma-2b's local attention at full width (10/1 heads, Dh = 256,
+# a 2,048-key window) over a 4,096-token prompt.
+FLASH_SHAPES = [("served", 4, 32, 8, 2048, 128, "bf16", True, 0),
+                ("served_f32", 4, 32, 8, 2048, 128, "f32", True, 0),
+                ("dh64_15_5", 4, 15, 5, 2048, 64, "bf16", True, 0),
+                ("dh256", 4, 8, 1, 2048, 256, "bf16", True, 0),
+                ("ragged_s1000", 4, 32, 8, 1000, 128, "bf16", True, 0),
+                ("noncausal", 4, 32, 8, 2048, 128, "bf16", False, 0),
+                ("rg2b_local", 1, 10, 1, 4096, 256, "bf16", True, 2048)]
+# The kernel each dtype must take: bf16 at Dh 64, 128 and 256 (aligned
+# tensors) the wgmma kernel, float32 the float32 pipe.
+FLASH_ROUTE = {"bf16": "wgmma", "f32": "f32_pipe"}
 # (atol, rtol): float32 sums in another order; bf16 the reference's own
 # tolerance for its bf16 flash test (an output rounds to bf16, one step of
 # which is 2^-7 of its value, after P was rounded to bf16 for P V)
@@ -1175,7 +1184,8 @@ def live_pairs(sq: int, skv: int, causal: bool, kv_len: int | None = None,
 
 def phase_kernels_flash(gen) -> dict:
     """The flash kernel against its plain version at FLASH_SHAPES, each timed
-    beside its bound, the plain version and scaled_dot_product_attention."""
+    beside its bound, the plain version and scaled_dot_product_attention
+    (with an explicit mask where the shape has a window)."""
     import torch
     from repro_torch.kernels import flash_attention, ref
 
@@ -1183,38 +1193,46 @@ def phase_kernels_flash(gen) -> dict:
     row = dict(route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
                replaces="src/repro/kernels/flash_attention.py:84", max_abs_err=0.0,
                at_shapes=[])
-    for name, b, hq, hkv, s, dh, dt, causal in FLASH_SHAPES:
+    for name, b, hq, hkv, s, dh, dt, causal, window in FLASH_SHAPES:
         dtype = dtypes[dt]
+        kw = dict(causal=causal, window=window)
         q = torch.randn((b, hq, s, dh), generator=gen, device="cuda").to(dtype)
         k = torch.randn((b, hkv, s, dh), generator=gen, device="cuda").to(dtype)
         v = torch.randn((b, hkv, s, dh), generator=gen, device="cuda").to(dtype)
-        got = flash_attention.flash_attention(q, k, v, causal=causal)
-        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        got = flash_attention.flash_attention(q, k, v, **kw)
+        route = flash_attention.last_route
+        want = ref.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         atol, rtol = FLASH_TOL[dt]
+        check(route == FLASH_ROUTE[dt], f"flash {name}: launched the {route} kernel, "
+                                        f"expected {FLASH_ROUTE[dt]}")
         check(bool(torch.isfinite(got).all()), f"flash {name}: non-finite output")
         check(bool((diff <= atol + rtol * want.float().abs()).all()),
               f"flash {name}: max |err| {err} beyond atol {atol}, rtol {rtol}")
-        again = flash_attention.flash_attention(q, k, v, causal=causal)
+        again = flash_attention.flash_attention(q, k, v, **kw)
         check(bool(torch.equal(again, got)), f"flash {name} is not deterministic")
         del got, want, again
         # bound: q and o at Hq heads, k and v at Hkv heads, each moved once;
         # 4 Dh flops per live (query, key) pair (two products)
         elem = q.element_size()
         nbytes = elem * (2 * b * hq * s * dh + 2 * b * hkv * s * dh)
-        flops = 4.0 * b * hq * dh * live_pairs(s, s, causal)
+        flops = 4.0 * b * hq * dh * live_pairs(s, s, causal, window=window)
         bms, bby = bound(nbytes, flops, BF16_FLOPS if dt == "bf16" else FP32_FLOPS)
-        library = lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal, enable_gqa=True)
+        if window:
+            pos = torch.arange(s, device="cuda")
+            mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < window)
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True)
+        else:
+            library = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True)
         entry = dict(shape=dict(name=name, B=b, Hq=hq, Hkv=hkv, S=s, Dh=dh, dtype=dt,
-                                causal=causal),
-                     max_abs_err=err, bound_ms=bms, bound_by=bby,
-                     ms=cuda_time(lambda: flash_attention.flash_attention(q, k, v,
-                                                                          causal=causal), 5),
-                     plain_ms=cuda_time(lambda: ref.flash_attention_ref(q, k, v,
-                                                                        causal=causal),
+                                causal=causal, window=window),
+                     kernel=route, max_abs_err=err, bound_ms=bms, bound_by=bby,
+                     ms=cuda_time(lambda: flash_attention.flash_attention(q, k, v, **kw), 5),
+                     plain_ms=cuda_time(lambda: ref.flash_attention_ref(q, k, v, **kw),
                                         2, warmup=1),
                      library_ms=cuda_time(library, 5))
         row["max_abs_err"] = max(row["max_abs_err"], err)

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_error_string": (ctypes.c_char_p, [_I]),
         "flash_max_head_dim": (_I, []),
+        "flash_route": (_I, [_I, _I, _P, _P, _P, _P]),
         "flash_attention_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _I, _I, ctypes.c_float, _P]),
     },

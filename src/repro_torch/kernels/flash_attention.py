@@ -16,10 +16,16 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "dead_row_count"]
+__all__ = ["flash_attention", "dead_row_count", "ROUTES"]
 
 #: Launches of the kernel since the counter was last set to 0.
 launches = 0
+
+#: The two kernels of ``csrc/flash_attention.cu``, as ``flash_route`` numbers them.
+ROUTES = ("f32_pipe", "wgmma")
+
+#: The kernel the last launch took (the library's own routing rule).
+last_route: str | None = None
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -38,7 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``chunk_size`` is the reference's KV chunk; it sets only the value of a
     row with no live key (see ``dead_row_count``). Empty inputs return
     without a launch (an empty grid is an error)."""
-    global launches
+    global launches, last_route
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -66,14 +72,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if skv == 0:    # no key at all: the reference's accumulator stays 0
         return out.zero_()
+    bf16 = int(q.dtype == torch.bfloat16)
+    route = ROUTES[lib.flash_route(bf16, dh, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out.data_ptr())]
     with torch.cuda.device(q.device):
         err = lib.flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, hq, hkv, sq, skv, dh, int(causal), kv_len,
+            bf16, b, hq, hkv, sq, skv, dh, int(causal), kv_len,
             window, q_offset, float(dead_row_count(skv, chunk_size)),
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: "
                            f"{lib.flash_error_string(err).decode()}")
     launches += 1
+    last_route = route
     return out

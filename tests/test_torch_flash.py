@@ -70,7 +70,10 @@ def _np(t):
     (2, 8, 2, 64, 16, True, 32, "f32"),           # GQA 8/2
     (1, 1, 1, 100, 32, True, 64, "f32"),          # unaligned seq, tile 64
     (1, 2, 2, 64, 32, True, 32, "bf16"),
-], ids=["s32", "s64", "s100", "s160", "noncausal", "gqa8_2", "unaligned", "bf16"])
+    (1, 36, 36, 32, 64, True, 32, "f32"),         # Dh 64 at 36/36 heads
+    (1, 32, 2, 32, 128, True, 32, "bf16"),        # chatglm3's 32/2 heads, Dh 128
+], ids=["s32", "s64", "s100", "s160", "noncausal", "gqa8_2", "unaligned", "bf16",
+        "dh64_36_36", "chatglm3_32_2"])
 def test_plain_flash_matches_reference_kernel(b, hq, hkv, s, d, causal, tile, dtype):
     q, k, v = _qkv(b * 10 + s, b, hq, hkv, s, s, d)
     jdt, tdt = (jnp.float32, torch.float32) if dtype == "f32" else (jnp.bfloat16, torch.bfloat16)
@@ -99,14 +102,16 @@ def test_plain_flash_matches_exact_attention(causal):
                                atol=F32_ATOL)
 
 
-@pytest.mark.parametrize("sq,skv,window,q_offset,chunk", [
-    (37, 100, 16, 63, 32),      # prefill continuation: the last 37 positions
-    (64, 64, 8, 0, 16),         # sliding window
-    (40, 130, 0, 90, 64),       # offset, no window, ragged chunks
-    (20, 50, 8, 200, 32),       # every key outside the window: rows with no live key
-], ids=["continuation", "window", "offset", "no_live_key"])
-def test_plain_flash_matches_reference_chunked_attention(sq, skv, window, q_offset, chunk):
-    q, k, v = _qkv(sq + skv, 1, 4, 2, sq, skv, 16)
+@pytest.mark.parametrize("sq,skv,window,q_offset,chunk,hq,hkv,d", [
+    (37, 100, 16, 63, 32, 4, 2, 16),      # prefill continuation: the last 37 positions
+    (64, 64, 8, 0, 16, 4, 2, 16),         # sliding window
+    (40, 130, 0, 90, 64, 4, 2, 16),       # offset, no window, ragged chunks
+    (20, 50, 8, 200, 32, 4, 2, 16),       # every key outside the window: rows with no live key
+    (48, 48, 16, 0, 16, 10, 1, 256),      # recurrentgemma-2b's local attention: MQA, Dh 256
+], ids=["continuation", "window", "offset", "no_live_key", "mqa_dh256_window"])
+def test_plain_flash_matches_reference_chunked_attention(sq, skv, window, q_offset, chunk,
+                                                         hq, hkv, d):
+    q, k, v = _qkv(sq + skv, 1, hq, hkv, sq, skv, d)
     want = jattention.chunked_causal_attention(
         *(jnp.asarray(a) for a in (q, k, v)), chunk_size=chunk, window=window,
         q_offset=q_offset)

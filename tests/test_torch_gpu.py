@@ -393,42 +393,70 @@ def _flash_inputs(seed, b, hq, hkv, sq, skv, dh, dtype, dev):
 
 
 # (B, Hq, Hkv, Sq, Skv, Dh, options) of the flash checks, grouped by what
-# they exercise
+# they exercise. The bf16 kernel's tiles are 128 query rows and 128 keys (64
+# at Dh = 256); ``misaligned`` hands the kernel views 2 bytes (bf16) or 4
+# bytes (float32) off a 16-byte boundary, which TMA cannot read.
 FLASH_CASES = {
     "head_widths": [(1, 4, 2, 64, 64, 16, {}), (1, 4, 2, 100, 100, 64, {}),
-                    (1, 4, 2, 100, 100, 128, {}), (1, 4, 2, 100, 100, 256, {})],
+                    (1, 4, 2, 100, 100, 128, {}), (1, 4, 2, 100, 100, 256, {}),
+                    (1, 4, 2, 129, 191, 128, dict(causal=False)),   # Sq, Skv off the tiles
+                    (1, 4, 2, 129, 191, 256, {}),
+                    (1, 4, 2, 100, 100, 64, dict(misaligned=True))],   # the float32 pipe
     "heads_and_lengths": [
         (1, 32, 8, 2048, 2048, 128, {}),                    # the served prefill's heads
         (1, 15, 5, 100, 100, 64, {}),                       # smollm's heads
         (1, 15, 5, 160, 160, 64, dict(causal=False)),
-        (2, 3, 1, 1, 77, 128, dict(q_offset=76))],          # one query row
+        (2, 3, 1, 1, 77, 128, dict(q_offset=76)),           # one query row
+        (1, 10, 1, 300, 300, 256, dict(window=128))],       # recurrentgemma-2b's MQA heads
     "masks": [(1, 4, 2, 37, 300, 128, dict(q_offset=263)),  # prefill continuation
               (1, 4, 4, 200, 200, 64, dict(window=48)),
               (1, 4, 2, 64, 100, 64, dict(kv_len=70, causal=False)),
-              (1, 2, 2, 50, 130, 32, dict(window=8, q_offset=200))],  # rows with no live key
+              (1, 2, 2, 50, 130, 32, dict(window=8, q_offset=200)),   # rows with no live key
+              (1, 4, 2, 384, 384, 128, dict(window=100)),   # a window crossing KV tiles
+              (1, 4, 2, 384, 384, 256, dict(window=100)),
+              (1, 4, 2, 200, 300, 64, dict(kv_len=150, causal=False)),   # kv_len inside a tile
+              (1, 4, 2, 100, 400, 128, dict(q_offset=300)),   # continuation past a tile edge
+              (1, 2, 2, 50, 130, 256, dict(window=8, q_offset=200))],   # no live key, Dh 256
 }
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past its buffer's start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("group", sorted(FLASH_CASES))
 def test_cuda_flash_attention_matches_plain(group):
-    """Each case in float32 (the float32-pipe kernel) and bf16 (the
-    tensor-core kernel where Dh % 8 == 0 and Dh <= 128)."""
+    """Each case in float32 (the float32-pipe kernel) and bf16 (the wgmma
+    kernel where Dh % 8 == 0 and the tensors are 16-byte aligned, else the
+    float32 pipe), each launch through the route the library names."""
     dev = _card()
     from repro_torch.kernels import flash_attention
 
     for (b, hq, hkv, sq, skv, dh, kw), dtype in itertools.product(
             FLASH_CASES[group], (torch.float32, torch.bfloat16)):
+        kw = dict(kw)
+        misaligned = kw.pop("misaligned", False)
         tol = ((0, FLASH_F32_ATOL) if dtype == torch.float32
                else (FLASH_BF16_TOL, FLASH_BF16_TOL))
         q, k, v = _flash_inputs(sq + skv + dh, b, hq, hkv, sq, skv, dh, dtype, dev)
+        if misaligned:
+            q, k, v = (_misaligned(t) for t in (q, k, v))
+        route = ("wgmma" if dtype == torch.bfloat16 and dh % 8 == 0 and not misaligned
+                 else "f32_pipe")
+        case = (b, hq, hkv, sq, skv, dh, kw, dtype, misaligned)
         ops.reset_launch_counts()
         got = ops.flash_attention(q, k, v, **kw)
         assert ops.launch_counts()["flash_attention"] == 1 and flash_attention.launches == 1
+        assert flash_attention.last_route == route, case
         want = ref.flash_attention_ref(q, k, v, **kw)
         assert got.dtype == dtype and got.shape == q.shape
         torch.testing.assert_close(got.float(), want.float(), rtol=tol[0], atol=tol[1],
-                                   msg=lambda m: f"{(b, hq, hkv, sq, skv, dh, kw, dtype)}: {m}")
+                                   msg=lambda m: f"{case}: {m}")
         assert torch.equal(ops.flash_attention(q, k, v, **kw), got)   # deterministic
 
 
