@@ -36,8 +36,11 @@ Phases, each printing one JSON line:
    plan and route, per-phase times, peak memory, NMI/ARI, launch counts.
 9. ``kernel`` (cosine): the two serving scorers at the served model's shape
    (q = 64 anchors, K = 16, batches of 1, 64 and 1,024 rows, k = 1, 4, 16),
-   at the reference's envelope (q = K = 1024) and at a ragged q = 70,
-   K = 13, with exact ties, against their plain versions, then timed beside
+   at the reference's envelope (q = K = 1024), at a ragged q = 70, K = 13,
+   at K = 2000 (more signature tiles than a cluster scores in a pass), at
+   k = 17 (above the running top-k's cap, through the scratch) and at a
+   ragged P = 4000 of the envelope's width, with exact ties, against their
+   plain versions, then timed beside
    their bound, the plain version and the library pair they replace
    (``torch.matmul`` + ``torch.max`` / ``topk``): ``ms`` is device time per
    call from CUDA-graph replay (at the served shape a call's host cost
@@ -126,12 +129,18 @@ SPMM_RTOL = 1e-5                           # with an absolute floor of 1e-5 * ma
 # The served model is the dense cell's: q = signature_dim = 64 anchors and
 # K = 16 clusters on both axes. (P, q, K, k_top) of the cosine kernels: the
 # served batches P = 1, 64, 1024 at k_top = 1, 4, 16; the reference's
-# envelope (src/repro/analysis/vmem.py:209-222); a ragged q and K. All are
-# checked and timed; COSINE_PADDED is checked with k_valid < K.
+# envelope (src/repro/analysis/vmem.py:209-222); a ragged q and K; K = 2000,
+# more signature tiles (16 of 128) than a cluster scores in a pass (8); a
+# k_top of 17, one above the running top-k's cap (cosine_max_k() = 16), so
+# the scores go through the (P, K) scratch; a ragged P at the envelope's
+# width. All are checked and timed; COSINE_PADDED is checked with k_valid < K.
 COSINE_SHAPES = ([(p, 64, 16, kt) for p in (1, 64, 1024) for kt in (1, 4, 16)]
-                 + [(4096, 1024, 1024, 8), (1024, 70, 13, 13)])
+                 + [(4096, 1024, 1024, 8), (1024, 70, 13, 13), (4096, 1024, 2000, 8),
+                    (1024, 64, 256, 17), (4000, 1024, 1000, 8)])
 COSINE_PADDED = (1024, 64, 24, 16)      # 24 signature rows, the first 16 valid
 COSINE_MAIN = {"cosine_assign": (64, 64, 16, 1), "cosine_topk": (64, 64, 16, 4)}
+COSINE_ENVELOPE = {"cosine_assign": (4096, 1024, 1024, 1),
+                   "cosine_topk": (4096, 1024, 1024, 8)}
 COSINE_SCORE_RTOL = 1e-5       # of the dot product's scale sum_d |x_d s_kd|
 COSINE_TIE_RTOL = 1e-6         # a label may differ only on a tie this near
 SERVE_ROW_BATCHES = {1: 200, 64: 100, 1024: 40}   # batch rows -> requests
@@ -528,12 +537,16 @@ def _cosine_non_finite(gen) -> None:
 
 
 def phase_kernels_cosine(gen) -> dict:
-    """The serving scorers against their plain versions at the served, the
-    envelope and a ragged shape, then timed beside bound, plain and
-    library; one more shape checks k_valid."""
+    """The serving scorers against their plain versions at every shape of
+    COSINE_SHAPES (served, envelope, ragged, past a cluster, past the
+    running top-k's cap), then timed beside bound, plain and library; one
+    more shape checks k_valid."""
     import torch
-    from repro_torch.kernels import kmeans_assign, ref
+    from repro_torch.kernels import _build, kmeans_assign, ref
 
+    cap = _build.load("cosine").cosine_max_k()
+    check(any(kt == cap + 1 for *_, kt in COSINE_SHAPES),
+          f"no cosine shape has k_top = {cap + 1}, one above the running top-k's cap")
     rows = {name: dict(route="cuda", source="src/repro_torch/kernels/csrc/cosine.cu",
                        replaces=f"src/repro/kernels/kmeans_assign.py:{line}",
                        max_abs_err=0.0, near_ties=0, at_shapes=[])
@@ -587,14 +600,19 @@ def phase_kernels_cosine(gen) -> dict:
         del x, s
     padded = _cosine_padded(gen)
     _cosine_non_finite(gen)
+    def entry(shape):
+        p, q, k, kt = shape
+        return next(e for e in row["at_shapes"] if e["shape"] == dict(P=p, q=q, K=k, k_top=kt))
+
     for name, row in rows.items():
-        p, q, k, kt = COSINE_MAIN[name]
-        main = next(e for e in row["at_shapes"]
-                    if e["shape"] == dict(P=p, q=q, K=k, k_top=kt))
+        main, envelope = entry(COSINE_MAIN[name]), entry(COSINE_ENVELOPE[name])
         row["near_ties"] += padded["near_ties"]
         row.update(shape=main["shape"], k_valid_check=padded["shape"],
                    **{key: main[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms", "eager_ms")})
+                                                 "library_ms", "eager_ms")},
+                   at_envelope={key: envelope[key] for key in
+                                ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")})
         emit("kernel", name=name, **row)
     torch.cuda.empty_cache()
     return rows

@@ -15,6 +15,18 @@ padded. The reference's ``k_valid`` (signature rows at and past it are
 masked to -inf) is passed to the kernel as its signature count, so those
 rows are never read.
 
+The kernel is a float32 SIMT product for Hopper, bound by the FFMA rate at
+the reference's envelope (P = 4096, q = K = 1024) and by reading ``x`` at
+the served shape (q = 64, K = 16). It keeps 16 x 8 scores a thread in
+registers, stages feature slices transposed through a ``cp.async`` ring
+with one barrier a slice, splits the signature axis over the warps of a CTA
+and over a thread-block cluster of 2 CTAs (merged through distributed
+shared memory), and keeps each point's running top-k in shared memory, so
+no score matrix is stored; K <= 16 takes a narrow tile. Above
+``k = cosine_max_k()`` (16) the scores go to a ``(P, K)`` scratch this
+wrapper allocates, and the top ``k`` are selected from it. The header of
+``csrc/cosine.cu`` gives the design.
+
 The plain versions are in ``ref``; ``ops`` picks between kernel and plain
 version by the tensor's device.
 """
@@ -113,10 +125,10 @@ def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
     scores = torch.empty((p, k), dtype=torch.float32, device=x.device)
     if p == 0:
         return labels, scores
-    # above cosine_max_k() signatures the score tiles no longer fit in shared
-    # memory and live in this scratch instead
+    # above cosine_max_k() best scores a point's running top-k is not kept:
+    # the scores go to this scratch and the k best are selected from it
     spill = (torch.empty((p, k_valid), dtype=torch.float32, device=x.device)
-             if k_valid > lib.cosine_max_k() else None)
+             if k > lib.cosine_max_k() else None)
     # the kernel reads only the first k_valid signature rows: the rows the
     # reference masks to -inf are never scored
     with torch.cuda.device(x.device):

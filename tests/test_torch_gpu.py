@@ -324,9 +324,13 @@ def test_cuda_cosine_kernels_order_non_finite_scores_as_plain():
 
 @pytest.mark.gpu
 def test_cuda_cosine_zero_rows_and_limits():
-    """A zero-row batch launches nothing; above the signatures whose score
-    tile fits in shared memory the kernel scores into a scratch in device
-    memory and still gives the plain version's labels (no ceiling on K)."""
+    """A zero-row batch launches nothing. Above the k_top kept as a running
+    top-k the kernel scores into a scratch in device memory (its rows staged
+    in shared memory at K = 256, read from device memory at K = 1500); at
+    K = 2000 and 4000 a cluster's CTAs take several passes of signatures
+    each, at a ragged P. Every case gives the plain version's labels,
+    descending scores, exact ties to the lower id, cosine_assign as column
+    0 and the same bits on a second launch: K and k_top have no ceiling."""
     dev = _card()
     from repro_torch.kernels import _build, kmeans_assign
 
@@ -335,13 +339,18 @@ def test_cuda_cosine_zero_rows_and_limits():
     labels, scores = kmeans_assign.cosine_topk(torch.zeros((0, 8), device=dev), s, 2)
     assert labels.shape == (0, 2) and ops.launch_counts()["cosine_topk"] == 0
     max_k = _build.load("cosine").cosine_max_k()
-    assert max_k >= 1024
-    for k, k_top in ((max_k + 1, 3), (4000, 1)):
-        x, sigs = _cosine_inputs(k, 300, 64, k, dev)
+    assert max_k >= 16
+    for q, k, k_top in ((64, 256, max_k + 1), (64, 1500, max_k + 1), (64, 4000, 1),
+                        (64, 4000, max_k), (1024, 2000, 8)):
+        x, sigs = _cosine_inputs(k, 300, q, k, dev)
         top, top_s = kmeans_assign.cosine_topk(x, sigs, k_top)
         _check_scores(x, sigs, top, top_s, *ref.cosine_topk_ref(x, sigs, k_top))
         labels, score = kmeans_assign.cosine_assign(x, sigs)
         assert torch.equal(top[:, 0], labels) and torch.equal(top_s[:, 0], score)
+        assert torch.equal(labels[:3], torch.zeros(3, dtype=torch.int32, device=dev))
+        assert bool((top_s[:, :-1] >= top_s[:, 1:]).all())
+        again = kmeans_assign.cosine_topk(x, sigs, k_top)
+        assert torch.equal(again[0], top) and torch.equal(again[1], top_s)
 
 
 @pytest.mark.gpu
