@@ -6,6 +6,9 @@ toolkit and Triton::
 
     python3 chip_smoke.py [--seed 0]
 
+``--time-kmeans SRC`` only times the k-means kernels of the tree whose
+``src/`` is SRC (``time_kmeans`` below), to compare two commits on one card.
+
 Phases, each printing one JSON line:
 
 1. ``device``: the card's name, count, power limit.
@@ -13,14 +16,18 @@ Phases, each printing one JSON line:
    Triton kernel compiles; build seconds and the ptxas report.
 3. ``kernel``: each hand-written kernel at the shapes the main path gives it,
    against its plain PyTorch version on the same inputs, then timed with
-   CUDA events beside its bound and the plain version.
+   CUDA events beside its bound and the plain version (the k-means rows
+   also give ``device_ms``, from CUDA-graph replay); ``kernel_check``:
+   both k-means kernels at the edges of their narrow and wide tiles
+   (``KMEANS_EDGE_SHAPES``), deterministic, with equal labels and d2.
 4. ``parity``: a small planted matrix through ``lamc_cocluster`` on the card
    and on the CPU with the same injected draws; the labels must agree.
 5. ``e2e``: the dense cell ``lamc_dense_131k``, a 131,072 x 16,384 float32
    planted matrix (made on the card from ``--seed``) through
    ``lamc_cocluster`` with the plan search, per-phase CUDA-event times, peak
    memory, NMI/ARI against the planted truth, and the kernels' launch counts
-   during that run.
+   during that run; then ``kmeans_split``: its k-means phase at its shape
+   on random points, k-means++ seeding apart from the Lloyd steps.
 6. ``kernel`` (sparse): the three SpMM kernels at the sparse cell's shapes
    (its 131,072 x 16,384 operator at density 0.1, rank 6), with and without
    the normalization's lazy scales (which must give the materialized
@@ -153,6 +160,14 @@ SERVICE_REQUESTS = 256
 # d2 check takes 1e-3 here where the D = 5 shapes take 1e-4.
 KMEANS_WIDE_SHAPE = (8, 16_384, 128, 128)   # B, P, D, K
 KMEANS_WIDE_D2_ATOL = 1e-3
+# (B, P, D, K, weighted) at the edges of the two k-means tiles (narrow: D <= 16
+# and K <= 32, 1,024 points a CTA; wide: 128 points x 128 centroids a pass):
+# D = K = 1; P = 1 and 33 in each tile; one point past 10 narrow tiles; a
+# ragged weighted wide shape (K = 100, D = 130); K = 300, three centroid passes.
+KMEANS_EDGE_SHAPES = [(2, 3000, 1, 1, True), (3, 1, 5, 16, True), (3, 33, 5, 16, False),
+                      (2, 10_241, 5, 16, True), (2, 1, 130, 100, True),
+                      (2, 33, 130, 100, False), (2, 3000, 130, 100, True),
+                      (2, 300, 128, 300, True)]
 
 # Flash attention: (name, B, Hq, Hkv, S, Dh, dtype, causal, window); the
 # first is the served prefill of lm_qwen3_4b_serve, the last
@@ -305,6 +320,11 @@ def phase_build():
         built = {name: fut.result() for name, fut in cuda.items()}
     for name in built:
         _build.load(name)
+    # the k-means entry points (their registers and spills follow each in
+    # the report, which the build line prints)
+    entries = [ln for ln in built["kmeans"][0][1].splitlines() if "entry function" in ln]
+    for entry in ("kmeans_narrow_kernel", "kmeans_wide_kernel", "kmeans_reduce_kernel"):
+        check(any(entry in ln for ln in entries), f"the ptxas report names no {entry}")
     triton_info = {key: getattr(binary, key, None) for key in ("n_regs", "n_spills")}
     triton_info["shared"] = getattr(getattr(binary, "metadata", None), "shared", None)
     check(bool(torch.equal(compiled, a)), "scale_apply warm-up is wrong")
@@ -319,10 +339,19 @@ def phase_build():
 
 def _label_check(x, c, labels, want):
     """Labels equal on >= 99.99 % of points; the rest near-ties within
-    1e-5 * (|x|^2 + |c|^2)."""
+    1e-5 * (|x|^2 + |c|^2). Two labels that name equal centroid rows (the
+    inputs draw centroids from the points, so at P < K some repeat) are the
+    same answer: there the kernel must give the lower id, which its exact
+    ties go to, and the plain version may give either."""
     import torch
 
     differ = labels != want
+    if bool(differ.any()):
+        rows = lambda ids: torch.gather(c, 1, ids.long()[..., None].expand(-1, -1, c.shape[2]))
+        same_row = (rows(labels) == rows(want)).all(-1)
+        check(bool((labels <= want)[differ & same_row].all()),
+              "k-means label of a repeated centroid is not its lowest id")
+        differ &= ~same_row
     frac = differ.float().mean().item()
     if frac:
         d2 = ((x[:, :, None, :] - c[:, None, :, :]) ** 2).sum(-1)
@@ -347,9 +376,10 @@ def _kmeans_inputs(shape, weighted, gen):
 
 
 def check_kmeans_update(shape, weighted, gen, d2_atol: float = 1e-4):
-    """The fused Lloyd step against its plain version; returns max |err|."""
+    """The fused Lloyd step against its plain version, deterministic, its
+    labels and d2 equal to ``kmeans_assign``'s; returns max |err|."""
     import torch
-    from repro_torch.kernels import kmeans_update, ref
+    from repro_torch.kernels import kmeans_assign, kmeans_update, ref
 
     x, c, w = _kmeans_inputs(shape, weighted, gen)
     labels, d2, sums, counts = kmeans_update.kmeans_update(x, c, w)
@@ -368,17 +398,40 @@ def check_kmeans_update(shape, weighted, gen, d2_atol: float = 1e-4):
         err = max(err, (mine - theirs).abs().max().item())
     again = kmeans_update.kmeans_update(x, c, w)
     check(all(torch.equal(u, v) for u, v in zip(again, (labels, d2, sums, counts))),
-          "kmeans_update is not deterministic")
+          f"kmeans_update is not deterministic at {shape}")
+    al, ad = kmeans_assign.kmeans_assign(x, c)
+    check(bool(torch.equal(al, labels) and torch.equal(ad, d2)),
+          f"kmeans_update's labels and d2 are not kmeans_assign's at {shape}")
     return x, c, w, err, frac
+
+
+def check_kmeans_edges(gen) -> None:
+    """Both k-means kernels at the edges of their two tiles
+    (KMEANS_EDGE_SHAPES), against their plain versions."""
+    import torch
+
+    for b, p, d, k, weighted in KMEANS_EDGE_SHAPES:
+        # d2 carries a few ulps of |x|^2 + |c|^2 ~ 2 D: the wide shapes take
+        # the K = D = 128 row's 1e-3
+        _, _, _, err, frac = check_kmeans_update((b, p, d, k), weighted, gen,
+                                                 1e-4 if d <= 16 else KMEANS_WIDE_D2_ATOL)
+        emit("kernel_check", name="kmeans_update+kmeans_assign", shape=[b, p, d, k],
+             weighted=weighted, max_abs_err=err, label_mismatch=frac)
+    torch.cuda.empty_cache()
 
 
 def kmeans_rows(shape, gen, d2_atol: float = 1e-4) -> dict:
     """``kmeans_update`` and ``kmeans_assign`` at ``(B, P, D, K)``: checked
-    against their plain versions, then timed beside their bounds."""
+    against their plain versions, then timed beside their bounds. ``ms``,
+    like the plain version's and the library call's, is the time per call
+    launched one by one from Python between CUDA events, host cost included;
+    ``device_ms`` is device time per call from CUDA-graph replay (at the
+    atom and sparse shapes a call's host cost exceeds its device time)."""
     import torch
     from repro_torch.kernels import kmeans_assign, kmeans_update, ref
 
     rows = {}
+    side = torch.cuda.Stream()
     b, p, d, k = shape
     x, c, w, err, frac = check_kmeans_update(shape, False, gen, d2_atol)
     bms, bby = bound(4 * (b * p * d + b * k * d + 2 * b * p + b * k * d + b * k),
@@ -388,6 +441,7 @@ def kmeans_rows(shape, gen, d2_atol: float = 1e-4) -> dict:
         replaces="src/repro/kernels/kmeans_update.py:79", max_abs_err=err,
         label_mismatch=frac, shape=list(shape),
         ms=cuda_time(lambda: kmeans_update.kmeans_update(x, c), 200),
+        device_ms=graph_time(lambda: kmeans_update.kmeans_update(x, c), 200, side),
         plain_ms=cuda_time(lambda: ref.kmeans_update_ref(x, c), 50),
         bound_ms=bms, bound_by=bby, library_ms=None)
 
@@ -403,6 +457,7 @@ def kmeans_rows(shape, gen, d2_atol: float = 1e-4) -> dict:
         max_abs_err=(d2 - rd).abs().max().item(), label_mismatch=frac,
         shape=list(shape),
         ms=cuda_time(lambda: kmeans_assign.kmeans_assign(x, c), 200),
+        device_ms=graph_time(lambda: kmeans_assign.kmeans_assign(x, c), 200, side),
         plain_ms=cuda_time(lambda: ref.kmeans_assign_ref(x, c), 50),
         bound_ms=bms, bound_by=bby,
         library_ms=cuda_time(lambda: torch.cdist(x, c).argmin(-1), 50))
@@ -422,6 +477,7 @@ def phase_kernels(gen) -> dict:
     _, _, _, err, frac = check_kmeans_update(MERGE_SHAPE, True, gen)
     emit("kernel_check", name="kmeans_update", shape=list(MERGE_SHAPE), weighted=True,
          max_abs_err=err, label_mismatch=frac)
+    check_kmeans_edges(gen)
 
     bs, m, n = SCALE_SHAPE
     a = torch.randn(SCALE_SHAPE, generator=gen, device="cuda")
@@ -762,6 +818,49 @@ def phase_e2e(seed: int):
     check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
           f"NMI against the planted truth below 0.8: {scores}")
     return counts, dict(result=res, config=cfg, matrix=a, col_truth=col_truth, mu=mu)
+
+
+def phase_kmeans_split(gen) -> dict:
+    """The dense cell's k-means phase at its shape (ATOM_SHAPE: the fit's
+    16 Lloyd steps over 128 blocks) on random points, split into the
+    k-means++ seeding and the Lloyd steps with the final assignment:
+    elapsed time between CUDA events around each part (so idle gaps while
+    the host enqueues count), and the host's time to enqueue it. The second
+    of two runs is reported."""
+    import torch
+    from repro_torch.core import kmeans as km
+    from repro_torch.core import lamc
+    from repro_torch.kernels import ops
+
+    b, p, d, k = ATOM_SHAPE
+    iters = lamc.LAMCConfig(**E2E_CONFIG).kmeans_iters
+    x = torch.randn((b, p, d), generator=gen, device="cuda")
+    for _ in range(2):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        seeds = km.kmeanspp_init(x, k, gen)
+        events[1].record()
+        t1 = time.perf_counter()
+        res = km.kmeans(x, k, n_iter=iters, assign_impl="pallas", init=seeds, device=x.device)
+        events[2].record()
+        t2 = time.perf_counter()
+        torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    out = dict(shape=list(ATOM_SHAPE), iters=iters,
+               seeding_ms=events[0].elapsed_time(events[1]),
+               lloyd_and_assign_ms=events[1].elapsed_time(events[2]),
+               host_enqueue_ms=dict(seeding=(t1 - t0) * 1e3, lloyd_and_assign=(t2 - t1) * 1e3),
+               launches={name: counts[name] for name in ("kmeans_update", "kmeans_assign")})
+    emit("kmeans_split", **out)
+    check(out["launches"] == {"kmeans_update": iters, "kmeans_assign": 1},
+          f"k-means launches {out['launches']}")
+    check(bool(torch.isfinite(res.inertia).all()) and res.labels.shape == (b, p),
+          "k-means split run gave no finite inertia")
+    del x
+    return out
 
 
 def _service_request(i: int, rows_np, cols_np):
@@ -1188,6 +1287,31 @@ def phase_kernels_kmeans_wide(gen) -> dict:
     return rows
 
 
+def time_kmeans(src: Path, seed: int) -> int:
+    """``--time-kmeans SRC``: the k-means wrappers of the tree whose ``src/``
+    is SRC (they build into the ``build/`` beside it), timed as the
+    ``kernel`` rows time them (``ms`` eager, ``device_ms`` by CUDA-graph
+    replay) at ATOM_SHAPE, SPARSE_KMEANS_SHAPE and KMEANS_WIDE_SHAPE, on
+    inputs from ``seed``; no check, no other phase. To compare two commits
+    on one card, unpack the older one's tree under ``build/`` and run this
+    for both trees in one call, in the order old, new, new, old."""
+    import torch
+    from repro_torch.kernels import kmeans_assign, kmeans_update
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    side = torch.cuda.Stream()
+    for shape in (ATOM_SHAPE, SPARSE_KMEANS_SHAPE, KMEANS_WIDE_SHAPE):
+        x, c, _ = _kmeans_inputs(shape, False, gen)
+        for name, fn in (("kmeans_update", lambda: kmeans_update.kmeans_update(x, c)),
+                         ("kmeans_assign", lambda: kmeans_assign.kmeans_assign(x, c))):
+            emit("time_kmeans", src=str(src), name=name, shape=list(shape),
+                 ms=cuda_time(fn, 200), device_ms=graph_time(fn, 200, side))
+        del x, c
+        torch.cuda.empty_cache()
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
 def live_pairs(sq: int, skv: int, causal: bool, kv_len: int | None = None,
                window: int = 0, q_offset: int = 0) -> int:
     """(query, key) pairs the mask keeps: the work the attention must do."""
@@ -1349,6 +1473,8 @@ def phase_lm_serve(seed: int, smi: str) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--time-kmeans", type=Path, metavar="SRC",
+                        help="only time the k-means kernels of the tree whose src/ is SRC")
     args = parser.parse_args()
 
     import torch
@@ -1361,10 +1487,12 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not beside {Path(__file__).name}",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str((args.time_kmeans or ROOT / "src").resolve()))
     from repro_torch.device import fp32_policy
 
     fp32_policy()
+    if args.time_kmeans:
+        return time_kmeans(args.time_kmeans, args.seed)
     try:
         smi = nvidia_smi()
         kind = torch.cuda.get_device_name(0)
@@ -1374,6 +1502,7 @@ def main() -> int:
         rows = phase_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
         phase_parity()
         dense_counts, dense_cell = phase_e2e(args.seed)
+        phase_kmeans_split(torch.Generator(device="cuda").manual_seed(args.seed + 4))
         rows.update(phase_kernels_cosine(
             torch.Generator(device="cuda").manual_seed(args.seed + 3)))
         phase_parity_serve()
@@ -1405,11 +1534,11 @@ def main() -> int:
                      launches_by_cell=by_cell, **row)
         if name in sparse_kmeans:
             entry["at_sparse_cell"] = {key: sparse_kmeans[name][key] for key in
-                                       ("shape", "ms", "plain_ms", "bound_ms", "max_abs_err",
-                                        "library_ms")}
+                                       ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                        "max_abs_err", "library_ms")}
             entry["at_k128_d128"] = {key: wide_kmeans[name][key] for key in
-                                     ("shape", "ms", "plain_ms", "bound_ms", "max_abs_err",
-                                      "library_ms", "label_mismatch")}
+                                     ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                      "max_abs_err", "library_ms", "label_mismatch")}
         summary.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

@@ -31,11 +31,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures of each library's entry points: name -> (restype, argtypes).
 _SIGNATURES = {
     "kmeans": {
-        "kmeans_tile": (_I, []),
+        "kmeans_tile": (_I, [_I, _I]),
         "kmeans_error_string": (ctypes.c_char_p, [_I]),
         "kmeans_assign_f32": (_I, [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
         "kmeans_update_f32": (_I, [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P,
-                                   _P, _P, _P, _P]),
+                                   _P, _P, _P]),
     },
     "cosine": {
         "cosine_error_string": (ctypes.c_char_p, [_I]),

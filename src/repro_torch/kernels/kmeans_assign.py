@@ -4,7 +4,16 @@ the serving path's cosine scorers (``csrc/cosine.cu``).
 ``kmeans_assign`` replaces ``kmeans_assign_pallas``
 (``src/repro/kernels/kmeans_assign.py:59``): nearest-centroid labels and
 clamped squared distances for a ``(B, P, D)`` batch of points against
-``(B, K, D)`` centroids, in one launch for all blocks.
+``(B, K, D)`` centroids, in one launch for all blocks. Each distance is
+``(|x|^2 - 2 x.c) + |c|^2`` from three ``fmaf`` chains over ascending
+features, so it depends only on the two rows, never on the tile: wherever
+the distances are finite, the labels and distances equal
+``kmeans_update``'s bit for bit. At ``D <= 16`` and
+``K <= 32`` (the LAMC atoms) a narrow tile, bound by reading ``x``, stages
+1,024 points a CTA by 16-byte ``cp.async`` and keeps their features in
+registers; otherwise a wide tile keeps 8 x 8 (points x centroids)
+accumulators a thread over a ``cp.async`` ring of feature slices, bound by
+the FFMA rate at ``K = D = 128`` (``csrc/kmeans.cu``).
 
 ``cosine_assign`` and ``cosine_topk`` replace ``cosine_assign_pallas``
 (``:168``) and ``cosine_topk_pallas`` (``:132``): the best (or the ``k``
@@ -91,9 +100,10 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     lib = _build.load("kmeans")
     b, p, d = x.shape
     k = centroids.shape[1]
-    labels = torch.empty((b, p), dtype=torch.int32, device=x.device)
-    d2 = torch.empty((b, p), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    dev = x.device
+    labels = torch.empty((b, p), dtype=torch.int32, device=dev)
+    d2 = torch.empty((b, p), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
         err = lib.kmeans_assign_f32(x.data_ptr(), centroids.data_ptr(), b, p, d, k,
                                     labels.data_ptr(), d2.data_ptr(),
                                     torch.cuda.current_stream().cuda_stream)

@@ -43,36 +43,91 @@ def _label_agreement(x, c, labels, want):
     assert differ.float().mean().item() <= 1e-4
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("b,p,d,k,weighted", [
-    (128, 10240, 5, 16, False),      # the atom k-means at the chip cell's plan
-    (4, 2048, 64, 16, True),         # the merge k-means shape, weighted
-    (3, 1000, 7, 13, True),          # ragged tile, odd widths
-    (2, 3000, 5, 65, True),          # K above one centroid slice, no ceiling
-    (2, 3000, 5, 128, False),
-    (2, 3000, 65, 16, True),         # D above one feature slice
-    (2, 3000, 128, 128, False),
-])
-def test_cuda_kmeans_kernels_match_plain(b, p, d, k, weighted):
-    dev = _card()
-    x, c, w = (torch.from_numpy(v).to(dev) for v in _points(7, b, p, d, k))
-    w = w if weighted else None
+# (b, p, d, k, weighted) shapes, grouped by the tile edge they reach: each
+# group is one case of the test, so the collected test count stays small.
+KMEANS_SHAPES = {
+    "chip_cells": [
+        (128, 10240, 5, 16, False),  # the atom k-means at the chip cell's plan
+        (1, 147_456, 5, 16, False),  # the sparse cell's shape
+    ],
+    "merge": [
+        (4, 2048, 64, 16, True),     # the merge k-means shape, weighted
+    ],
+    "narrow_tile_edges": [
+        (3, 1000, 7, 13, True),      # ragged tile, odd widths
+        (2, 3000, 1, 1, True),       # D = K = 1
+        (3, 1, 5, 16, True),         # P = 1 and P = 33 (a tile holds 1,024 points)
+        (3, 33, 5, 16, False),
+        (2, 10_241, 5, 16, True),    # one point past 10 tiles
+    ],
+    "centroid_slices": [
+        (2, 3000, 5, 65, True),      # K above one centroid slice, no ceiling
+        (2, 3000, 5, 128, False),
+        (2, 300, 128, 300, True),    # three passes of 128 centroids
+    ],
+    "feature_slices": [
+        (2, 3000, 65, 16, True),     # D above one feature slice
+        (2, 3000, 128, 128, False),
+    ],
+    "wide_tile_edges": [
+        (2, 1, 130, 100, True),      # P = 1 and P = 33 (a tile holds 128 points)
+        (2, 33, 130, 100, False),
+        (2, 3000, 130, 100, True),   # wide, weighted, ragged K and D
+    ],
+}
+
+
+def _check_kmeans_shape(dev, b, p, d, k, weighted):
     from repro_torch.kernels import kmeans_assign, kmeans_update
 
+    shape = f"(b, p, d, k, weighted) = {(b, p, d, k, weighted)}"
+    x, c, w = (torch.from_numpy(v).to(dev) for v in _points(7, b, p, d, k))
+    w = w if weighted else None
     labels, d2 = kmeans_assign.kmeans_assign(x, c)
     rl, rd = ref.kmeans_assign_ref(x, c)
     _label_agreement(x, c, labels, rl)
-    torch.testing.assert_close(d2, rd, rtol=KM_RTOL, atol=KM_ATOL)
+    torch.testing.assert_close(d2, rd, rtol=KM_RTOL, atol=KM_ATOL, msg=shape)
     ul, ud, us, uc = kmeans_update.kmeans_update(x, c, w)
-    assert torch.equal(ul, labels) and torch.equal(ud, d2)
+    assert torch.equal(ul, labels) and torch.equal(ud, d2), shape
     # statistics of the kernel's own labels, so near-tie flips cannot differ
     onehot = (ul.long()[..., None] == torch.arange(k, device=dev)).float()
     if w is not None:
         onehot = onehot * w[..., None]
-    torch.testing.assert_close(us, onehot.mT @ x, rtol=KM_RTOL, atol=KM_ATOL)
-    torch.testing.assert_close(uc, onehot.sum(1), rtol=KM_RTOL, atol=KM_ATOL)
+    torch.testing.assert_close(us, onehot.mT @ x, rtol=KM_RTOL, atol=KM_ATOL, msg=shape)
+    torch.testing.assert_close(uc, onehot.sum(1), rtol=KM_RTOL, atol=KM_ATOL, msg=shape)
     again = kmeans_update.kmeans_update(x, c, w)
-    assert torch.equal(again[2], us) and torch.equal(again[3], uc)  # deterministic
+    assert torch.equal(again[2], us) and torch.equal(again[3], uc), shape  # deterministic
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", list(KMEANS_SHAPES))
+def test_cuda_kmeans_kernels_match_plain(group):
+    dev = _card()
+    for shape in KMEANS_SHAPES[group]:
+        _check_kmeans_shape(dev, *shape)
+
+
+@pytest.mark.gpu
+def test_cuda_kmeans_points_off_16_bytes():
+    """Points that start 4, 8 or 12 bytes past a 16-byte boundary (a view at
+    an offset), in the narrow tile (D = 5, K = 16) and in the wide one (D = 130,
+    K = 100): the narrow tile's 16-byte copies start early and skip the skew."""
+    dev = _card()
+    from repro_torch.kernels import kmeans_assign, kmeans_update
+
+    for (d, k), skew in itertools.product([(5, 16), (130, 100)], (1, 2, 3)):
+        x, c, w = (torch.from_numpy(v).to(dev) for v in _points(11, 3, 777, d, k))
+        buf = torch.empty(x.numel() + skew, device=dev)
+        xs = buf[skew:].view(x.shape)
+        xs.copy_(x)
+        assert xs.data_ptr() % 16 == 4 * skew
+        labels, d2 = kmeans_assign.kmeans_assign(xs, c)
+        ul, ud, us, uc = kmeans_update.kmeans_update(xs, c, w)
+        want = kmeans_update.kmeans_update(x, c, w)
+        where = f"d={d} k={k} skew={skew}"
+        assert torch.equal(labels, want[0]) and torch.equal(d2, want[1]), where
+        for got, ref_ in zip((ul, ud, us, uc), want):
+            assert torch.equal(got, ref_), where
 
 
 @pytest.mark.gpu
