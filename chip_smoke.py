@@ -7,7 +7,9 @@ toolkit and Triton::
     python3 chip_smoke.py [--seed 0]
 
 ``--time-kmeans SRC`` only times the k-means kernels of the tree whose
-``src/`` is SRC (``time_kmeans`` below), to compare two commits on one card.
+``src/`` is SRC (``time_kmeans`` below), and ``--time-spmm SRC`` its
+``spmm_ata`` at the sparse cell (``time_spmm``), to compare two commits on
+one card.
 
 Phases, each printing one JSON line:
 
@@ -32,7 +34,10 @@ Phases, each printing one JSON line:
    (its 131,072 x 16,384 operator at density 0.1, rank 6), with and without
    the normalization's lazy scales (which must give the materialized
    operator's bits), against their plain versions, then timed beside their
-   bound, the plain version and a ``torch.sparse_bsr_tensor`` product; and
+   bound, the plain version and a ``torch.sparse_bsr_tensor`` product; the
+   ``spmm_ata`` row also gives its grid, bands and ring slots, and
+   ``spmm_ata_band_cost`` what a band costs with one payload in it (checked
+   against the plain version) and what a new operator's schedule costs; and
    the k-means kernels at the sparse cell's shape.
 7. ``parity_sparse``: a small planted COO matrix on a single-block tiled plan
    on the card and on the CPU with the same injected draws (labels agree),
@@ -270,6 +275,30 @@ def scratch_dir():
 def bound(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+@contextlib.contextmanager
+def call_events(module, name: str):
+    """CUDA events around every call of ``module.name`` while open; yields
+    the list of (start, end) pairs, to be read after a sync. A pair spans
+    the call's device work and any wait of the stream for the host."""
+    import torch
+
+    pairs, inner = [], getattr(module, name)
+
+    def timed(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*args, **kwargs)
+        end.record()
+        pairs.append((start, end))
+        return out
+
+    setattr(module, name, timed)
+    try:
+        yield pairs
+    finally:
+        setattr(module, name, inner)
 
 
 class PhaseTimer:
@@ -1091,6 +1120,46 @@ def _spmm_close(got, want, what):
     return err
 
 
+def spmm_ata_band_cost(lazy, x, plan, cell_ms: float) -> dict:
+    """What a band of ``spmm_ata`` costs with almost no bytes to move: the
+    cell's bands and grid with one payload each (tile-row i at tile-col i mod
+    n_tc), checked against the plain version, then timed beside the cell's
+    time per band. Also the time to make a new operator's schedule (the work
+    its first ``spmm_ata`` call adds)."""
+    import torch
+    from repro_torch.kernels import ref, spmm
+
+    n_tr, n_tc = lazy.n_tiles
+    rn = min(x.shape[1], 8)
+    pick = torch.nonzero(lazy.block_cols.long() == lazy.block_rows.long() % n_tc).squeeze(1)
+    check(pick.numel() == n_tr, "the sparse cell must occupy every tile")
+    rows, cols = lazy.block_rows[pick], lazy.block_cols[pick]
+    lone = spmm.BlockSparseMatrix(
+        lazy.blocks[pick], rows, cols,
+        torch.argsort(cols.long() * n_tr + rows.long()).to(torch.int32), lazy.shape,
+        lazy.row_scale, lazy.col_scale)
+    lone_plan = spmm.ata_plan(lone, spmm.ata_grid(lone), rn)
+    check(lone_plan.n_bands == plan.n_bands and lone_plan.grid == plan.grid,
+          f"one payload a band: plan {lone_plan} against the cell's {plan}")
+    z, gram = spmm.spmm_ata(lone, x, with_gram=True)
+    want_z, want_g = ref.spmm_ata_ref(lone, x, with_gram=True)
+    err = _spmm_close(z, want_z, "spmm_ata, one payload a band")
+    gerr = (gram - want_g).abs().max().item()
+    check(gerr <= 1e-4 * want_g.abs().max().item(),
+          f"spmm_ata, one payload a band: Gram max |err| {gerr}")
+    ms = cuda_time(lambda: spmm.spmm_ata(lone, x, with_gram=True), 20)
+
+    def new_schedule():
+        lazy._ata_schedules.clear()
+        spmm.ata_plan(lazy, plan.grid, rn)
+        spmm.ata_schedule(lazy, plan.grid, plan.grp)
+
+    return dict(bands=plan.n_bands, grid=plan.grid, payloads=n_tr, max_abs_err=err,
+                max_abs_err_gram=gerr, ms=ms, us_per_band=1e3 * ms / plan.n_bands,
+                cell_us_per_band=1e3 * cell_ms / plan.n_bands,
+                schedule_ms=cuda_time(new_schedule, 5, warmup=1))
+
+
 def phase_kernels_sparse(a, gen) -> dict:
     """The SpMM kernels at the sparse cell's shapes, on its own operator:
     unscaled, and with the normalization's scales lazy (the main path's
@@ -1131,7 +1200,7 @@ def phase_kernels_sparse(a, gen) -> dict:
              max_abs_gram=want_g.abs().max().item())
     for name, call in (("spmm", lambda o: spmm.spmm(o, x)),
                        ("spmm_t", lambda o: spmm.spmm_t(o, y)),
-                       ("spmm_ata", lambda o: spmm.spmm_ata(o, x, with_gram=True)[1])):
+                       ("spmm_ata", lambda o: torch.cat(spmm.spmm_ata(o, x, with_gram=True)))):
         check(bool(torch.equal(call(lazy), call(eager))),
               f"{name}: lazy scales are not bit-equal to the materialized operator")
         check(bool(torch.equal(call(lazy), call(lazy))), f"{name} is not deterministic")
@@ -1160,6 +1229,7 @@ def phase_kernels_sparse(a, gen) -> dict:
                           lambda: ref.spmm_ata_ref(lazy, x, with_gram=True),
                           (None, "no single PyTorch call computes A.T (A X) and its Gram"))}
     lines = {"spmm": 413, "spmm_t": 483, "spmm_ata": 585}
+    plan = spmm.ata_plan(lazy, spmm.ata_grid(lazy), min(r, 8))
     for name, (kernel, plain, (lib_ms, lib_note)) in timed.items():
         bms, bby = bounds[name]
         rows[name] = dict(
@@ -1168,8 +1238,13 @@ def phase_kernels_sparse(a, gen) -> dict:
             shape=dict(m=m, k=k, r=r, payloads=g, tile=[bm, bk], scaled=True),
             ms=cuda_time(kernel, 20), plain_ms=cuda_time(plain, 3, warmup=1),
             bound_ms=bms, bound_by=bby, library_ms=lib_ms,
-            **({"library_note": lib_note} if lib_note else {}))
+            **({"library_note": lib_note} if lib_note else {}),
+            **({"grid": plan.grid, "bands": plan.n_bands, "band_rows": plan.grp * plan.h,
+                "lag": spmm.ATA_LAG, "ring_slots": dict(f=plan.nb, t=plan.tb, pieces=plan.cap)}
+               if name == "spmm_ata" else {}))
         emit("kernel", name=name, **rows[name])
+    emit("kernel_check", name="spmm_ata_band_cost",
+         **spmm_ata_band_cost(lazy, x, plan, rows["spmm_ata"]["ms"]))
     del op, lazy, eager
     torch.cuda.empty_cache()
     kms = kmeans_rows(SPARSE_KMEANS_SHAPE, gen)
@@ -1237,7 +1312,7 @@ def phase_e2e_sparse(a, row_truth, col_truth, seed: int) -> dict:
     import torch
     from repro_torch.core import lamc, opcache
     from repro_torch.core.metrics import ari, nmi
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, spmm
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1247,7 +1322,9 @@ def phase_e2e_sparse(a, row_truth, col_truth, seed: int) -> dict:
     cfg = lamc.LAMCConfig(**SPARSE_CONFIG, seed=seed)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    res = lamc.lamc_cocluster(a, cfg, timer=timer)
+    with call_events(spmm, "spmm_ata") as ata_calls, \
+            call_events(spmm, "ata_schedule") as schedule_calls:   # inside the svd phase
+        res = lamc.lamc_cocluster(a, cfg, timer=timer)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
@@ -1261,6 +1338,8 @@ def phase_e2e_sparse(a, row_truth, col_truth, seed: int) -> dict:
          plan=dict(m=plan.m, n=plan.n, phi=plan.phi, psi=plan.psi, t_p=plan.t_p,
                    spmm_route=plan.spmm_route),
          wall_s=wall, phase_ms=timer.ms(),
+         spmm_ata_call_ms=[start.elapsed_time(end) for start, end in ata_calls],
+         ata_schedule_call_ms=[start.elapsed_time(end) for start, end in schedule_calls],
          max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
          launches=counts, **scores)
     opcache.default_cache().clear()      # the cached operator holds ~10 GB
@@ -1308,6 +1387,52 @@ def time_kmeans(src: Path, seed: int) -> int:
                  ms=cuda_time(fn, 200), device_ms=graph_time(fn, 200, side))
         del x, c
         torch.cuda.empty_cache()
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+def time_spmm(src: Path, seed: int) -> int:
+    """``--time-spmm SRC``: ``spmm_ata(lazy, x, with_gram=True)`` of the tree
+    whose ``src/`` is SRC (it builds into the ``build/`` beside it) at the
+    sparse cell's operator (131,072 x 16,384 at density 0.1, lazy scales,
+    rank 6), timed as the ``kernel`` rows time it (``ms`` eager, ``device_ms``
+    by CUDA-graph replay), and one call from an idle card on a new operator
+    over the same tensors (``first_call_ms``, what a fit's first call pays)
+    and on this one (``idle_call_ms``), each the median of three; no check,
+    no other phase. To compare two commits
+    on one card, unpack the older one's tree under ``build/`` and run this for
+    both trees in one call, in the order old, new, new, old."""
+    import torch
+    from repro_torch.core import sparse, spectral
+    from repro_torch.kernels import spmm
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    coo, _, _ = planted_sparse_on_card(E2E_ROWS, E2E_COLS, E2E_K, SPARSE_DENSITY, gen)
+    lazy, _, _ = spectral.normalize_bipartite(sparse.to_tiled(coo))
+    del coo
+    x = torch.linalg.qr(torch.randn((E2E_COLS, SPARSE_RANK), generator=gen,
+                                    device="cuda")).Q.contiguous()
+    fn = lambda: spmm.spmm_ata(lazy, x, with_gram=True)
+
+    def one_call(new: bool) -> float:
+        op = lazy
+        if new:   # its segments made, as the fit's normalization makes them
+            op = spmm.BlockSparseMatrix(lazy.blocks, lazy.block_rows, lazy.block_cols,
+                                        lazy.t_order, lazy.shape, lazy.row_scale,
+                                        lazy.col_scale)
+            op.segments()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        spmm.spmm_ata(op, x, with_gram=True)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    emit("time_spmm", src=str(src), name="spmm_ata", shape=[E2E_ROWS, E2E_COLS, SPARSE_RANK],
+         ms=cuda_time(fn, 20), device_ms=graph_time(fn, 20, torch.cuda.Stream()),
+         first_call_ms=sorted(one_call(True) for _ in range(3))[1],
+         idle_call_ms=sorted(one_call(False) for _ in range(3))[1])
     print(nvidia_smi(), flush=True)
     return 0
 
@@ -1475,6 +1600,8 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--time-kmeans", type=Path, metavar="SRC",
                         help="only time the k-means kernels of the tree whose src/ is SRC")
+    parser.add_argument("--time-spmm", type=Path, metavar="SRC",
+                        help="only time spmm_ata of the tree whose src/ is SRC")
     args = parser.parse_args()
 
     import torch
@@ -1487,12 +1614,14 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not beside {Path(__file__).name}",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str((args.time_kmeans or ROOT / "src").resolve()))
+    sys.path.insert(0, str((args.time_kmeans or args.time_spmm or ROOT / "src").resolve()))
     from repro_torch.device import fp32_policy
 
     fp32_policy()
     if args.time_kmeans:
         return time_kmeans(args.time_kmeans, args.seed)
+    if args.time_spmm:
+        return time_spmm(args.time_spmm, args.seed)
     try:
         smi = nvidia_smi()
         kind = torch.cuda.get_device_name(0)

@@ -55,8 +55,10 @@ _SIGNATURES = {
                           _I, _P, _P]),
         "spmm_t_f32": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P,
                             _I, _I, _P, _P]),
-        "spmm_ata_f32": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P,
-                              _I, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _P]),
+        "spmm_ata_grid": (_I, [_I]),
+        "spmm_ata_f32": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _I, _P,
+                              _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P]),
     },
 }
 

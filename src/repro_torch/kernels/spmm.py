@@ -26,11 +26,15 @@ Three CUDA kernels (``csrc/spmm.cu``) replace the TPU kernels of
 ``src/repro/kernels/spmm.py``: :func:`spmm` (``spmm_pallas``, line 413),
 :func:`spmm_t` (``spmm_t_pallas``, line 483) and :func:`spmm_ata`
 (``spmm_ata_pallas``, line 585). Each takes the RHS width at run time (no
-padding to 128 columns), gives every output tile-row (or tile-col) a fixed
-set of CTAs that walk its payload segment in a fixed order, and adds split
-partial sums in a fixed order: the result is the same from run to run, and
-there are no atomics. The plain versions are in ``ref.py``; ``ops.py``
-dispatches by the tensor's device.
+padding to 128 columns) and sums in a fixed order with no atomics on data,
+so the result is the same from run to run. :func:`spmm` and :func:`spmm_t`
+give every output tile-row (or tile-col) a fixed set of CTAs that walk its
+payload segment and add split partial sums in chunk order. :func:`spmm_ata`
+is one persistent grid that makes a single pass over the payloads: it walks
+bands of rows and reduces each band's ``Y = A X`` across the grid
+(:func:`ata_plan`). The
+plain versions are in ``ref.py``; ``ops.py`` dispatches by the tensor's
+device.
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from . import _build
 __all__ = ["BlockSparseMatrix", "BlockSparsePlan", "bcoo_to_block_sparse_host",
            "block_sparse_plan", "block_sparse_apply", "bcoo_to_block_sparse",
            "spmm", "spmm_t", "spmm_ata", "segment_split", "MAX_TILE",
-           "TARGET_CTAS", "GRAM_CHUNKS"]
+           "TARGET_CTAS", "AtaPlan", "ata_grid", "ata_plan", "ata_schedule"]
 
 #: Largest tile edge the CUDA kernels take (16 warps x 8 rows; 32 lanes x 4 cols).
 MAX_TILE = 128
@@ -54,8 +58,19 @@ MAX_TILE = 128
 #: tile-col) is split into enough chunks to reach it; the chunk partials are
 #: added in chunk order by a second kernel.
 TARGET_CTAS = 4 * 132
-#: CTAs of the Gram's first stage (row chunks, each summed in a fixed order).
-GRAM_CHUNKS = 64
+
+# spmm_ata's persistent kernel (csrc/spmm.cu: kRingBytes, kMaxSlots,
+# kMaxTSlots, kMaxPieces, kMaxCap, kBandRows, kSlots, kRbufFloats, kLag): the
+# shared memory of its ring of payload slices, its F and T band slots and
+# pieces, the rows of a band, the device-memory slots of the band partials and
+# Y, the floats of R's share of a band's partials, and the bands between a
+# band's partial A X and its reduction (and again to its A.T Y).
+ATA_RING_BYTES = 192 * 1024
+ATA_MAX_SLOTS, ATA_MAX_T_SLOTS, ATA_MAX_PIECES, ATA_MAX_CAP = 8, 2, 32, 8
+ATA_BAND_ROWS = 128
+ATA_SLOTS = 8
+ATA_RBUF_FLOATS = 4 * 320
+ATA_LAG = 2
 
 #: Launches of each kernel since the counters were last set to 0.
 launches = {"spmm": 0, "spmm_t": 0, "spmm_ata": 0}
@@ -82,6 +97,10 @@ class BlockSparseMatrix:
     # (row_ptr (n_tr + 1,), col_ptr (n_tc + 1,)) int32 segment starts, made at
     # first use and shared by scaled copies
     _segments: tuple | None = dataclasses.field(default=None, repr=False)
+    # spmm_ata's schedules by (grid, band group): they depend on the pattern
+    # only, so scaled copies and every operator of one BlockSparsePlan share
+    # them
+    _ata_schedules: dict = dataclasses.field(default_factory=dict, repr=False)
 
     def __post_init__(self):
         self.shape = tuple(int(s) for s in self.shape)
@@ -151,7 +170,7 @@ class BlockSparseMatrix:
             block_cols=move(self.block_cols), t_order=move(self.t_order),
             row_scale=move(self.row_scale), col_scale=move(self.col_scale),
             _segments=None if self._segments is None
-            else tuple(move(t) for t in self._segments))
+            else tuple(move(t) for t in self._segments), _ata_schedules={})
 
 
 class BlockSparsePlan(NamedTuple):
@@ -167,6 +186,7 @@ class BlockSparsePlan(NamedTuple):
     bm: int
     bk: int
     shape: tuple
+    ata_schedules: dict         # spmm_ata's, shared by the operators it makes
 
 
 def bcoo_to_block_sparse_host(a, bm: int = 128, bk: int = 128) -> BlockSparseMatrix:
@@ -226,17 +246,25 @@ def block_sparse_plan(a, bm: int = 128, bk: int = 128) -> BlockSparsePlan:
     # lexsort((tile_rows, tile_cols))
     t_order = torch.sort(tile_cols, stable=True).indices
     return BlockSparsePlan(tile_rows.to(torch.int32), tile_cols.to(torch.int32),
-                           t_order.to(torch.int32), flat_idx, g, bm, bk, (m, k))
+                           t_order.to(torch.int32), flat_idx, g, bm, bk, (m, k), {})
 
 
 def block_sparse_apply(plan: BlockSparsePlan, values: torch.Tensor) -> BlockSparseMatrix:
-    """Values half: scatter ``values`` through a plan into a new stack."""
+    """Values half: scatter ``values`` through a plan into a new stack. On
+    the card it also makes ``spmm_ata``'s schedule for the pattern (for the
+    band group of 8-column stripes), once per plan: in the conversion rather
+    than in the first product, and not again for a refit of a cached
+    pattern (PERF.md, section 6, has what it costs in each place)."""
     flat = torch.zeros(plan.g * plan.bm * plan.bk, dtype=torch.float32,
                        device=plan.flat_idx.device)
     flat[plan.flat_idx] = values.to(torch.float32)
-    return BlockSparseMatrix(flat.reshape(plan.g, plan.bm, plan.bk),
-                             plan.block_rows, plan.block_cols, plan.t_order,
-                             plan.shape)
+    out = BlockSparseMatrix(flat.reshape(plan.g, plan.bm, plan.bk),
+                            plan.block_rows, plan.block_cols, plan.t_order,
+                            plan.shape, _ata_schedules=plan.ata_schedules)
+    if out.device.type == "cuda":
+        grid = ata_grid(out)
+        ata_schedule(out, grid, ata_plan(out, grid, 8).grp)
+    return out
 
 
 def bcoo_to_block_sparse(a, bm: int = 128, bk: int = 128) -> BlockSparseMatrix:
@@ -359,33 +387,129 @@ def spmm_t(a: BlockSparseMatrix, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class AtaPlan(NamedTuple):
+    """Shape of one ``spmm_ata`` launch (``csrc/spmm.cu``, spmm_ata_kernel).
+
+    A band is ``grp`` tile-rows (``grp > 1`` where ``bm <= 64``) or one of
+    ``sub`` row slices of ``h`` rows of a tile-row; CTA ``c`` of ``grid`` owns
+    tile-cols ``c n_tc // grid .. (c + 1) n_tc // grid - 1``. The ring holds
+    ``nb`` F slots and ``tb`` T slots of ``cap`` slices each; R trails F by
+    ``ATA_LAG`` bands and T by twice that."""
+
+    grid: int
+    grp: int
+    sub: int
+    h: int
+    n_q: int        # band groups: ceil(n_tr / grp)
+    n_bands: int    # n_q * sub
+    nb: int         # F slots of the ring
+    tb: int         # T slots of the ring
+    cap: int        # pieces of a slot
+
+
+def ata_schedule(a: BlockSparseMatrix, grid: int, grp: int):
+    """``(sched, bptr)``: every payload once, as ``sched (G, 4)`` int32 rows
+    ``(payload, tile-row, tile-col, 0)`` ordered by owning CTA, band group
+    (``tile-row // grp``), tile-col and tile-row; CTA ``c``'s payloads of group
+    ``q`` are ``sched[bptr[c n_q + q] : bptr[c n_q + q + 1]]``. Made on the
+    device once per pattern and grid, with no host sync but the first
+    :meth:`BlockSparseMatrix.segments` check, which the walks share."""
+    key = (grid, grp)
+    if key not in a._ata_schedules:
+        a.segments()                      # validates the sort orders used here
+        n_tr, n_tc = a.n_tiles
+        n_q = -(-n_tr // grp)
+        rows, cols = a.block_rows.long(), a.block_cols.long()
+        t = a.t_order.long()              # payloads in (tile-col, tile-row) order
+        owner = ((cols + 1) * grid - 1) // n_tc
+        group = owner * n_q + torch.div(rows, grp, rounding_mode="floor")
+        order = t[torch.sort(group[t], stable=True).indices]
+        sched = torch.stack([order, rows[order], cols[order], torch.zeros_like(order)],
+                            1).to(torch.int32).contiguous()
+        bptr = torch.searchsorted(group[order], torch.arange(grid * n_q + 1,
+                                                             device=order.device))
+        a._ata_schedules[key] = (sched, bptr.to(torch.int32))
+    return a._ata_schedules[key]
+
+
+def ata_plan(a: BlockSparseMatrix, grid: int, rn: int) -> AtaPlan:
+    """Bands and ring of ``spmm_ata`` on ``a`` for ``grid`` CTAs and stripes
+    of ``rn`` columns: bands of at most ``ATA_BAND_ROWS`` rows (row slices of
+    a tile-row where one CTA's share of R would not fit its buffer); ring
+    slots sized to hold a band's slices for a CTA that owns the most
+    tile-cols (capped by the ring, whose extra slices are read from device
+    memory); as many F slots as fit, at most 8, beside one or two T slots.
+    Reads only shapes: no host sync."""
+    bm, bk = a.tile_shape
+    n_tr, n_tc = a.n_tiles
+    if bm <= ATA_BAND_ROWS // 2:
+        grp, h = ATA_BAND_ROWS // bm, bm
+    else:   # slices small enough for two F slots and a T slot
+        grp, h = 1, bm
+        while ATA_RING_BYTES // (h * bk * 4) < 3:
+            h = -(-h // 2)
+
+    def rbuf_floats(rows):   # R's share of all partials, whole 16-byte units
+        units = -(-rows * rn // 4)
+        return -(-units // grid) * grid * 4
+
+    while rbuf_floats(grp * h) > ATA_RBUF_FLOATS:
+        if grp > 1:
+            grp //= 2
+        else:
+            h = -(-h // 2)
+    sub = -(-bm // h)
+    n_q = -(-n_tr // grp)
+    most = -(-n_tc // grid) * grp      # a CTA's payloads of a band, at most
+    ring = min(ATA_RING_BYTES // (h * bk * 4), ATA_MAX_PIECES)
+    cap = max(1, min(most, ring // 3, ATA_MAX_CAP))
+    tb = ATA_MAX_T_SLOTS if ring // cap >= 6 else 1
+    nb = min(ATA_MAX_SLOTS, ring // cap - tb)
+    return AtaPlan(grid, grp, sub, h, n_q, n_q * sub, nb, tb, cap)
+
+
+def ata_grid(a: BlockSparseMatrix) -> int:
+    """CTAs of ``spmm_ata`` on ``a``'s device: one per SM, at most one per
+    tile-col (and 160)."""
+    lib = _build.load("spmm")
+    with torch.cuda.device(a.device):
+        grid = lib.spmm_ata_grid(a.n_tiles[1])
+    if grid < 1:
+        raise RuntimeError("spmm_ata: cannot read the device's SM count")
+    return grid
+
+
 def spmm_ata(a: BlockSparseMatrix, x: torch.Tensor, with_gram: bool = False):
-    """``A.T @ (A @ x)`` for ``x (K, r)`` from one C entry point: the forward
-    walk writes ``Y = A x`` to device memory (the L2 holds it), the
-    transposed walk reads it back, and with ``with_gram`` a two-stage
-    fixed-order reduction forms ``Z.T @ Z``. Returns ``z`` or ``(z, gram)``."""
+    """``A.T @ (A @ x)`` for ``x (K, r)`` by one persistent CUDA kernel that
+    makes a single pass over the payloads: bands of rows stream through
+    shared memory, and each band's ``Y = A x`` is reduced across the grid in a
+    fixed order (so ``Y`` never exists whole) and applied to a second copy of
+    the band's slices, taken a few bands later (meant to come from the L2;
+    not measured). With ``with_gram`` each CTA forms ``Z.T @ Z`` over its
+    rows and a second launch adds them in CTA order. Returns ``z`` or
+    ``(z, gram)``."""
     _check(a, x, a.shape[1], "spmm_ata")
+    plan = ata_plan(a, ata_grid(a), min(x.shape[1], 8))
     lib = _build.load("spmm")
     m, k = a.shape
     r = x.shape[1]
     n_tr, n_tc, bm, bk, rs, cs = _launch_args(a)
-    row_ptr, col_ptr = a.segments()
-    split_f = segment_split(n_tr, _stripes(r))
-    split_t = segment_split(n_tc, _stripes(r))
+    sched, bptr = ata_schedule(a, plan.grid, plan.grp)
     dev = x.device
+    es = -(-plan.grp * plan.h * min(r, 8) // 4) * 4   # whole 16-byte units
     empty = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
-    y, out = empty(m, r), empty(k, r)
-    part_f = empty(split_f, m, r) if split_f > 1 else empty(1)
-    part_t = empty(split_t, k, r) if split_t > 1 else empty(1)
+    out = empty(k, r)
+    part, ybuf = empty(ATA_SLOTS, plan.grid, es), empty(ATA_SLOTS, es)
+    cnt = torch.zeros(_stripes(r) * (plan.n_bands + 2 * ATA_LAG), dtype=torch.int32,
+                      device=dev)
     gram = empty(r, r) if with_gram else None
-    gram_part = empty(GRAM_CHUNKS, r, r) if with_gram else None
+    gram_part = empty(plan.grid, r, r) if with_gram else None
     with torch.cuda.device(dev):
         err = lib.spmm_ata_f32(
-            a.blocks.data_ptr(), a.block_rows.data_ptr(), a.block_cols.data_ptr(),
-            a.t_order.data_ptr(), row_ptr.data_ptr(), col_ptr.data_ptr(), rs, cs,
-            n_tr, n_tc, bm, bk, x.data_ptr(), m, k, r, y.data_ptr(), out.data_ptr(),
-            split_f, part_f.data_ptr(), split_t, part_t.data_ptr(), _ptr(gram),
-            _ptr(gram_part), GRAM_CHUNKS, torch.cuda.current_stream().cuda_stream)
+            a.blocks.data_ptr(), sched.data_ptr(), bptr.data_ptr(), rs, cs, n_tr, n_tc,
+            bm, bk, x.data_ptr(), m, k, r, out.data_ptr(), part.data_ptr(), ybuf.data_ptr(),
+            cnt.data_ptr(), _ptr(gram), _ptr(gram_part), *plan, es,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on_error(lib, err, "spmm_ata")
     launches["spmm_ata"] += 1
     return (out, gram) if with_gram else out

@@ -204,35 +204,62 @@ def _spmm_close(got, want):
                                atol=1e-5 * max(want.abs().max().item(), 1e-30))
 
 
+# (m, n, density, bm, bk, r) grouped by what they reach in the kernels; each
+# group is one case of the test, so the collected test count stays small. The
+# spmm_ata notes name its branches (csrc/spmm.cu, spmm.ata_plan).
+SPMM_SHAPES = {
+    "ragged": [
+        (1000, 700, 0.05, 128, 128, 6),      # ragged edges, the atom's rank
+        (700, 500, 0.1, 100, 40, 6),         # 50-row slices, 10 chunks a row
+        (512, 34_000, 0.01, 128, 128, 6),    # more tile-cols than SMs: several a CTA,
+                                             # a band's slices overflow the ring
+    ],
+    "small_tiles": [
+        (300, 389, 0.2, 64, 64, 3),          # small tiles, partial lanes; bands of 2 tile-rows
+        (1000, 500, 0.05, 16, 32, 5),        # bands of 8 tile-rows
+    ],
+    "stripes": [
+        (257, 1031, 0.01, 32, 128, 11),      # two stripes, empty tiles
+        (1000, 700, 0.05, 128, 128, 11),     # two stripes at full tiles
+    ],
+    "few_tile_cols": [
+        (4096, 256, 0.1, 128, 128, 1),       # few tile-cols: split transposed walk,
+                                             # a grid of 2 CTAs for spmm_ata
+        (2048, 640, 0.1, 128, 128, 6),       # 5 tile-cols, fewer than the SMs
+        (256, 15_360, 0.01, 128, 128, 8),    # a grid of 120 at 8 columns: bands of
+                                             # half a tile-row (sub = 2)
+    ],
+}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,n,density,bm,bk,r", [
-    (1000, 700, 0.05, 128, 128, 6),      # ragged edges, the atom's rank
-    (300, 389, 0.2, 64, 64, 3),          # small tiles, partial lanes
-    (257, 1031, 0.01, 32, 128, 11),      # two stripes, empty tiles
-    (4096, 256, 0.1, 128, 128, 1),       # few tile-cols: split transposed walk
-])
-def test_cuda_spmm_kernels_match_plain(m, n, density, bm, bk, r):
+@pytest.mark.parametrize("group", list(SPMM_SHAPES))
+def test_cuda_spmm_kernels_match_plain(group):
     dev = _card()
-    a, lazy = _tiled(3, m, n, density, bm, bk, dev)
-    eager = lazy.materialize_scales()
-    g = torch.Generator(device=dev).manual_seed(0)
-    x = torch.randn((n, r), generator=g, device=dev)
-    y = torch.randn((m, r), generator=g, device=dev)
-    for op in (a, lazy):
-        _spmm_close(spmm.spmm(op, x), ref.spmm_tiled_ref(op, x))
-        _spmm_close(spmm.spmm_t(op, y), ref.spmm_tiled_ref(op, y, transpose=True))
-        z, gram = spmm.spmm_ata(op, x, with_gram=True)
-        want_z, _ = ref.spmm_ata_ref(op, x, with_gram=True)
-        _spmm_close(z, want_z)
-        torch.testing.assert_close(gram, z.T @ z, rtol=1e-4,
-                                   atol=1e-4 * (z.T @ z).abs().max().item())
-        assert torch.equal(spmm.spmm_ata(op, x), z)
-    # lazy scales give the materialized operator's bits, and runs repeat
-    assert torch.equal(spmm.spmm(lazy, x), spmm.spmm(eager, x))
-    assert torch.equal(spmm.spmm_t(lazy, y), spmm.spmm_t(eager, y))
-    assert torch.equal(spmm.spmm_ata(lazy, x, with_gram=True)[1],
-                       spmm.spmm_ata(eager, x, with_gram=True)[1])
-    assert torch.equal(spmm.spmm_t(lazy, y), spmm.spmm_t(lazy, y))
+    for m, n, density, bm, bk, r in SPMM_SHAPES[group]:
+        a, lazy = _tiled(3, m, n, density, bm, bk, dev)
+        eager = lazy.materialize_scales()
+        g = torch.Generator(device=dev).manual_seed(0)
+        x = torch.randn((n, r), generator=g, device=dev)
+        y = torch.randn((m, r), generator=g, device=dev)
+        for op in (a, lazy):
+            _spmm_close(spmm.spmm(op, x), ref.spmm_tiled_ref(op, x))
+            _spmm_close(spmm.spmm_t(op, y), ref.spmm_tiled_ref(op, y, transpose=True))
+            z, gram = spmm.spmm_ata(op, x, with_gram=True)
+            want_z, _ = ref.spmm_ata_ref(op, x, with_gram=True)
+            _spmm_close(z, want_z)
+            torch.testing.assert_close(gram, z.T @ z, rtol=1e-4,
+                                       atol=1e-4 * (z.T @ z).abs().max().item())
+            assert torch.equal(spmm.spmm_ata(op, x), z)    # with_gram leaves z as it is
+        # lazy scales give the materialized operator's bits, and runs repeat
+        assert torch.equal(spmm.spmm(lazy, x), spmm.spmm(eager, x))
+        assert torch.equal(spmm.spmm_t(lazy, y), spmm.spmm_t(eager, y))
+        z, gram = spmm.spmm_ata(lazy, x, with_gram=True)
+        z_eager, gram_eager = spmm.spmm_ata(eager, x, with_gram=True)
+        assert torch.equal(z, z_eager) and torch.equal(gram, gram_eager)
+        z_again, gram_again = spmm.spmm_ata(lazy, x, with_gram=True)
+        assert torch.equal(z, z_again) and torch.equal(gram, gram_again)
+        assert torch.equal(spmm.spmm_t(lazy, y), spmm.spmm_t(lazy, y))
 
 
 @pytest.mark.gpu

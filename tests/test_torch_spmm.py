@@ -144,6 +144,42 @@ def test_spmm_tiled_matches_reference(tier, density, transpose):
     _close(ops.spmm_tiled(mine, torch.from_numpy(rhs), transpose=transpose), want)
 
 
+def _ata_walk(a, x, grid):
+    """``A.T (A x)`` walked as the CUDA ``spmm_ata`` kernel walks it: bands of
+    :func:`spmm.ata_plan`, each CTA's pieces from :func:`spmm.ata_schedule`
+    (every payload once, owned by the CTA of its tile-col), each band's Y
+    summed over the CTAs, rows past M zeroed, then its pieces' ``A_b.T Y_b``.
+    Plain float32 sums in another order than the kernel's. Returns ``(z,
+    plan)``."""
+    rn = min(x.shape[1], 8)
+    plan = spmm.ata_plan(a, grid, rn)
+    sched, bptr = spmm.ata_schedule(a, grid, plan.grp)
+    (m, k), (bm, bk), (n_tr, n_tc) = a.shape, a.tile_shape, a.n_tiles
+    assert sorted(sched[:, 0].tolist()) == list(range(a.blocks.shape[0]))
+    assert plan.nb >= 2 and plan.grp * plan.h <= spmm.ATA_BAND_ROWS
+    assert plan.h * bk * 4 * (plan.nb + plan.tb) * plan.cap <= spmm.ATA_RING_BYTES
+    blocks = a.materialize_scales().blocks
+    xp = torch.nn.functional.pad(x, (0, 0, 0, n_tc * bk - k))
+    z = torch.zeros(n_tc * bk, x.shape[1])
+    for b in range(plan.n_bands):
+        q, s = divmod(b, plan.sub)
+        i0, s0 = q * plan.grp, s * plan.h
+        hs = min(bm, s0 + plan.h) - s0
+        pieces = []
+        for c in range(grid):
+            j0, j1 = c * n_tc // grid, (c + 1) * n_tc // grid
+            for g, i, j, _ in sched[bptr[c * plan.n_q + q]:bptr[c * plan.n_q + q + 1]].tolist():
+                assert j0 <= j < j1 and i0 <= i < i0 + plan.grp
+                pieces.append((blocks[g, s0:s0 + hs], (i - i0) * hs, j))
+        y = torch.zeros(plan.grp * hs, x.shape[1])
+        for tile, row0, j in pieces:
+            y[row0:row0 + hs] += tile @ xp[j * bk:(j + 1) * bk]
+        y[i0 * bm + s0 + torch.arange(plan.grp * hs) >= m] = 0
+        for tile, row0, j in pieces:
+            z[j * bk:(j + 1) * bk] += tile.T @ y[row0:row0 + hs]
+    return z[:k], plan
+
+
 @pytest.mark.parametrize("density", DENSITIES)
 @pytest.mark.parametrize("with_gram", [False, True])
 def test_spmm_ata_matches_reference(tier, density, with_gram):
@@ -158,6 +194,18 @@ def test_spmm_ata_matches_reference(tier, density, with_gram):
         np.testing.assert_allclose(gram.numpy(), g, rtol=1e-4,
                                    atol=1e-4 * float(np.abs(g).max()))
     _close(got, want)
+    # the CUDA kernel's bands, ownership and schedule (64 x 64 tiles: bands of
+    # two tile-rows; 128 x 128: one tile-row, or half of one where a grid of
+    # 120 CTAs and 8 columns overflow R's buffer) give the same z
+    big = spmm.bcoo_to_block_sparse(to_bcoo(mat, "cpu"), 128, 128)
+    for op, grid in ((mine, 1), (mine, 2), (mine, 5), (big, 3)):
+        z, plan = _ata_walk(op, torch.from_numpy(x), grid)
+        assert plan.sub == 1
+        _close(z, want)
+    x8 = np.random.default_rng(3).normal(size=(260, 8)).astype(np.float32)
+    z, plan = _ata_walk(big, torch.from_numpy(x8), 120)
+    assert (plan.sub, plan.h) == (2, 64)
+    _close(z, jops.spmm_ata(theirs, jnp.asarray(x8)))
 
 
 def _scales(mat, seed):
