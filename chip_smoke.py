@@ -71,9 +71,26 @@ Phases, each printing one JSON line:
    requests and one hot swap to a version published through the
    ``ModelRegistry``. Held-out rows and re-assigned columns must recover the
    planted and fitted labels (NMI >= 0.8).
-12. ``kernel`` (k-means at K = D = 128): both k-means kernels past one
+12. ``parity_nmtf``: the small case through ``lamc_cocluster(atom="nmtf")``,
+   ``scc_full`` and ``nmtf_full`` on the card and on the CPU with the same
+   injected draws; the labels must be equal.
+13. ``e2e_nmtf``: the dense cell's matrix through ``lamc_cocluster`` with the
+   NMTF atom (LAMC-PNMTF) on phase 5's plan: per-phase times (``nmtf`` around
+   ``nmtf_init`` and ``nmtf_updates``), wall time, peak memory, NMI/ARI
+   (NMI > 0.4, the reference's bar) and launch counts (none: the atom is
+   plain batched products, as in the reference).
+14. ``baseline``: ``scc_full`` and ``nmtf_full`` on the same whole matrix,
+   twice each: wall times, the warm call's phases, peak memory, NMI/ARI
+   (> 0.6 and > 0.5, the reference's bars), ``scale_apply`` launches (one
+   for ``scc_full``) and phase 5's LAMC wall time over each (reported, not
+   gated).
+15. ``examples``: ``examples/torch_quickstart.py`` and
+   ``examples/torch_text_coclustering.py`` at their default sizes, in this
+   process, with their scores and launch counts; the quickstart's LAMC and
+   held-out NMI must reach 0.8.
+16. ``kernel`` (k-means at K = D = 128): both k-means kernels past one
    centroid and one feature slice, against their plain versions, timed.
-13. ``kernel`` (flash): the flash-attention kernel at the served prefill's
+17. ``kernel`` (flash): the flash-attention kernel at the served prefill's
    shape (B = 4, Hq = 32, Hkv = 8, S = 2048, Dh = 128, bf16), the same in
    float32, Dh = 64 (15/5 heads), Dh = 256, a ragged S = 1000, non-causal
    and recurrentgemma-2b's windowed local attention (10/1 heads, Dh = 256,
@@ -82,19 +99,20 @@ Phases, each printing one JSON line:
    float32), then timed (CUDA events) beside its bound, the plain version
    and ``scaled_dot_product_attention`` (a yardstick only: the port never
    calls it).
-14. ``parity_lm``: qwen3-4b at full width, depth cut to 2 layers, B = 1,
+18. ``parity_lm``: qwen3-4b at full width, depth cut to 2 layers, B = 1,
    S = 256, float32 compute, on the card (the kernel) and on the CPU (the
    plain version) with the same weights: prefill logits within 1e-3 of
    max|logit| and the same greedy tokens over 4 steps.
-15. ``lm_qwen3_4b_serve``: ``launch.serve.generate`` of the full qwen3-4b
+19. ``lm_qwen3_4b_serve``: ``launch.serve.generate`` of the full qwen3-4b
    (36 layers, random weights from ``--seed``), batch 4, prompt 2048, 32
    tokens: prefill ms, decode tokens/s, peak memory, one flash launch per
    layer, every logit finite.
-16. The card's line from nvidia-smi, the ``kernels`` summary, and last
+20. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-11 run right after phase 5, while the dense cell's matrix is still
-on the card; the LM phases run last, after the sparse cell is freed.
+Phases 9-14 run right after phase 5, while the dense cell's matrix is still
+on the card, and phase 15 once it is freed; the sparse cell (phases 6-8)
+follows, and the LM phases run last, after the sparse cell is freed.
 
 Any failed check or error exits nonzero before the last line. Without a
 CUDA device, or without the repository beside it, the script exits 1.
@@ -846,7 +864,8 @@ def phase_e2e(seed: int):
           "label shapes")
     check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
           f"NMI against the planted truth below 0.8: {scores}")
-    return counts, dict(result=res, config=cfg, matrix=a, col_truth=col_truth, mu=mu)
+    return counts, dict(result=res, config=cfg, matrix=a, row_truth=row_truth,
+                        col_truth=col_truth, mu=mu, wall_s=wall)
 
 
 def phase_kmeans_split(gen) -> dict:
@@ -1057,6 +1076,176 @@ def phase_e2e_serve(cell: dict, seed: int, smi: str) -> dict:
           "a COO batch got other labels than its dense twin")
     check(tuple(labels["empty"].shape) == (0,), "zero-row batch")
     return counts
+
+
+def _nmtf_small_case():
+    """The small case with the NMTF atom's draws (each block's k-means++
+    seeds as row and column indices) and the baselines' draws on the whole
+    matrix (an SCC sketch and seeds into Z, NMTF row and column seeds)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    pc, plan, draws, cfg = _small_case()
+    rng = np.random.default_rng(3)
+    seeds = lambda n: torch.from_numpy(np.stack(
+        [[rng.permutation(n)[:4] for _ in range(4)] for _ in range(2)]))
+    draws = dataclasses.replace(draws, omega=None, atom_seeds=None,
+                                nmtf_row_seeds=seeds(256), nmtf_col_seeds=seeds(192))
+    full = dict(omega=rng.normal(size=(384, 4)).astype(np.float32),
+                seeds=rng.permutation(512 + 384)[:4],
+                init=(rng.permutation(512)[:4], rng.permutation(384)[:4]))
+    return pc, plan, draws, dataclasses.replace(cfg, atom="nmtf"), full
+
+
+def phase_parity_nmtf():
+    """LAMC with the NMTF atom, ``scc_full`` and ``nmtf_full`` on the small
+    case, on the card and on the CPU with the same injected draws: the labels
+    must be equal."""
+    import torch
+    from repro_torch.core import baselines, lamc
+    from repro_torch.core.metrics import nmi
+
+    pc, plan, draws, cfg, full = _nmtf_small_case()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        runs[dev] = {
+            "lamc_nmtf": lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws,
+                                             device=dev),
+            "scc_full": baselines.scc_full(pc.matrix, 4, omega=full["omega"],
+                                           seeds=full["seeds"], device=dev),
+            "nmtf_full": baselines.nmtf_full(pc.matrix, 4, init=full["init"], device=dev)}
+    torch.cuda.synchronize()
+    out, equal = {}, {}
+    for name in runs["cuda"]:
+        for side, truth in (("row", pc.row_labels), ("col", pc.col_labels)):
+            card = getattr(runs["cuda"][name], f"{side}_labels").cpu()
+            host = getattr(runs["cpu"][name], f"{side}_labels")
+            equal[f"{name}_{side}"] = bool(torch.equal(card, host))
+            out[f"{name}_{side}_nmi_truth"] = nmi(card.numpy(), truth)
+    emit("parity_nmtf", labels_equal=equal, **out)
+    check(all(equal.values()), f"labels on the card differ from the CPU path: {equal}")
+
+
+def _scores(row_pred, col_pred, row_truth, col_truth) -> dict:
+    from repro_torch.core.metrics import cocluster_scores
+
+    return cocluster_scores(row_pred.cpu().numpy(), col_pred.cpu().numpy(),
+                            row_truth.cpu().numpy(), col_truth.cpu().numpy())
+
+
+def phase_e2e_nmtf(cell: dict, seed: int) -> dict:
+    """The dense cell's matrix through ``lamc_cocluster`` with the NMTF atom
+    (the LAMC-PNMTF row of the paper's Table II), on phase 5's plan."""
+    import torch
+    from repro_torch.core import lamc
+    from repro_torch.kernels import ops
+
+    a = cell["matrix"]
+    cfg = lamc.LAMCConfig(**E2E_CONFIG, atom="nmtf", seed=seed)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    timer = PhaseTimer()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = lamc.lamc_cocluster(a, cfg, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    plan = res.plan
+    scores = _scores(res.row_labels, res.col_labels, cell["row_truth"], cell["col_truth"])
+    emit("e2e_nmtf", rows=E2E_ROWS, cols=E2E_COLS, k=E2E_K, config=dict(E2E_CONFIG, atom="nmtf"),
+         plan=dict(m=plan.m, n=plan.n, phi=plan.phi, psi=plan.psi, t_p=plan.t_p),
+         wall_s=wall, phase_ms=timer.ms(), held_before_gib=held,
+         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, **scores)
+    check((plan.m, plan.n, plan.phi, plan.psi, plan.t_p) == E2E_PLAN,
+          f"plan resolved to {plan}, expected {E2E_PLAN}")
+    # the NMTF atom is plain batched products and the "jnp" k-means, as in
+    # the reference: no kernel of this slice's path runs in it
+    check(not any(counts.values()), f"launch counts {counts}, expected none")
+    check(res.row_labels.shape == (E2E_ROWS,) and res.col_labels.shape == (E2E_COLS,),
+          "label shapes")
+    check(scores["nmi"] > 0.4, f"LAMC-NMTF NMI against the planted truth <= 0.4: {scores}")
+    return counts
+
+
+def phase_baselines(cell: dict) -> dict:
+    """``scc_full`` and ``nmtf_full`` on the dense cell's whole matrix: the
+    paper's unpartitioned baselines, twice each (the second call is the warm
+    one, whose phases are reported), beside phase 5's LAMC wall time."""
+    import torch
+    from repro_torch.core import baselines
+    from repro_torch.kernels import ops
+
+    a = cell["matrix"]
+    out, counts = {}, {}
+    for name, fn, bar in (("scc_full", baselines.scc_full, 0.6),
+                          ("nmtf_full", baselines.nmtf_full, 0.5)):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            timer = PhaseTimer()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = fn(a, E2E_K, timer=timer)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts[name] = ops.launch_counts()
+        scores = _scores(res.row_labels, res.col_labels, cell["row_truth"],
+                         cell["col_truth"])
+        out[name] = dict(wall_s=walls, phase_ms=timer.ms(), held_before_gib=held,
+                         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+                         lamc_wall_over_baseline=cell["wall_s"] / walls[-1],
+                         launches=counts[name], **scores)
+        emit("baseline", name=name, rows=E2E_ROWS, cols=E2E_COLS, k=E2E_K,
+             lamc_wall_s=cell["wall_s"], **out[name])
+        check(scores["nmi"] > bar, f"{name} NMI against the planted truth <= {bar}: {scores}")
+    want = dict.fromkeys(counts["scc_full"], 0)
+    check(counts["scc_full"] == dict(want, scale_apply=1),
+          f"scc_full launch counts {counts['scc_full']}, expected one scale_apply")
+    check(counts["nmtf_full"] == want, f"nmtf_full launch counts {counts['nmtf_full']}")
+    return {name: counts["scc_full"][name] + counts["nmtf_full"][name] for name in want}
+
+
+def _load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples() -> dict:
+    """Both example scripts on the card at their default sizes, in this
+    process; each ``main`` returns the scores it prints."""
+    import torch
+    from repro_torch.kernels import ops
+
+    out, counts = {}, {}
+    for name in ("torch_quickstart", "torch_text_coclustering"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = _load_example(name).main([])
+        torch.cuda.synchronize()
+        out[name]["wall_s"] = time.perf_counter() - t0
+        counts[name] = ops.launch_counts()
+        out[name]["launches"] = counts[name]
+    emit("examples", **out)
+    quick = out["torch_quickstart"]
+    check(quick["lamc_nmi"] >= 0.8 and quick["heldout_nmi"] >= 0.8,
+          f"quickstart NMI below 0.8: {quick}")
+    for name, c in counts.items():
+        # the LAMC fit normalizes through scale_apply, assign_rows scores
+        # through cosine_assign
+        check(c["scale_apply"] >= 1 and c["cosine_assign"] == 1,
+              f"{name} launch counts {c}")
+    return {k: sum(c[k] for c in counts.values()) for k in counts["torch_quickstart"]}
 
 
 def planted_sparse_on_card(rows: int, cols: int, k: int, density: float, gen):
@@ -1636,8 +1825,12 @@ def main() -> int:
             torch.Generator(device="cuda").manual_seed(args.seed + 3)))
         phase_parity_serve()
         serve_counts = phase_e2e_serve(dense_cell, args.seed, smi)
+        phase_parity_nmtf()
+        nmtf_counts = phase_e2e_nmtf(dense_cell, args.seed)
+        baseline_counts = phase_baselines(dense_cell)
         del dense_cell
         torch.cuda.empty_cache()
+        example_counts = phase_examples()
         gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         cell = planted_sparse_on_card(E2E_ROWS, E2E_COLS, E2E_K, SPARSE_DENSITY, gen)
         sparse_rows, sparse_kmeans = phase_kernels_sparse(cell[0], gen)
@@ -1654,7 +1847,9 @@ def main() -> int:
         return 1
     rows.update(sparse_rows)
     cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts,
-             "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts}
+             "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts,
+             "lamc_dense_131k_nmtf": nmtf_counts, "baselines_131k": baseline_counts,
+             "examples": example_counts}
     summary = []
     for name, row in rows.items():
         # launches: per run of the first cell that launches the kernel

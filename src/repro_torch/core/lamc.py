@@ -3,8 +3,10 @@
 The dense path of the paper's Algorithm 1. Per resample ``t``:
 
   1. ``partition.extract_blocks`` gathers the ``(m*n, phi, psi)`` block stack.
-  2. The SCC atom runs on the whole stack at once (the reference vmaps it):
-     normalization, randomized SVD and k-means, each batched over blocks.
+  2. The atom runs on the whole stack at once (the reference vmaps it): SCC
+     (normalization, randomized SVD and k-means, each batched over blocks)
+     or, with ``atom="nmtf"``, NMTF's multiplicative updates as batched
+     products.
   3. Atom signatures are computed over the shared anchor features.
 
 Afterwards ``merging.signature_merge`` produces the consensus labels. The
@@ -35,6 +37,7 @@ import torch
 from ..device import fp32_policy, resolve_device, seeded_generator
 from . import merging, partition, probability, spectral
 from . import sparse as _sparse
+from .nmtf import nmtf as _nmtf
 
 __all__ = ["LAMCConfig", "LAMCResult", "lamc_cocluster", "run_resample",
            "anchor_features", "validate_config"]
@@ -49,8 +52,7 @@ _MERGE_STREAM = 8
 @dataclasses.dataclass(frozen=True)
 class LAMCConfig:
     """The reference's ``LAMCConfig``, field for field, so configurations
-    carry across. ``atom="nmtf"`` is not ported yet and raises
-    ``NotImplementedError``."""
+    carry across."""
 
     n_row_clusters: int
     n_col_clusters: int
@@ -105,15 +107,11 @@ class LAMCResult(NamedTuple):
 
 
 def validate_config(cfg: LAMCConfig) -> None:
-    """Raise on configurations the port does not run yet or that are wrong."""
+    """Raise on configurations that are wrong."""
     if cfg.input_format not in ("dense", "bcoo"):
         raise ValueError(f"unknown input_format {cfg.input_format!r}")
     _sparse.validate_spmm_impl(cfg.spmm_impl)
-    if cfg.atom == "nmtf":
-        raise NotImplementedError(
-            "atom='nmtf' is not ported yet: ROADMAP.md queue 1, item 1 "
-            "(core/nmtf.py)")
-    if cfg.atom != "scc":
+    if cfg.atom not in ("scc", "nmtf"):
         raise ValueError(f"unknown atom method {cfg.atom!r}")
     if cfg.assignment not in ("hard", "overlap"):
         raise ValueError(
@@ -147,16 +145,36 @@ def _operator_index(given, n_points: int, groups: int, size: int,
     return natural
 
 
+def _atom(blocks, cfg: LAMCConfig, gen: torch.Generator, dev: torch.device,
+          omega, seeds, nmtf_init, timer):
+    """The configured atom on the block stack (the reference's ``_atom_fn``):
+    ``(row_labels (B, phi), col_labels (B, psi))``. NMTF shifts the stack in
+    place: it is this resample's own."""
+    if cfg.atom == "nmtf":
+        with timer("nmtf"):
+            res = _nmtf(blocks, cfg.atom_k, cfg.atom_d, n_iter=cfg.nmtf_iters,
+                       init=nmtf_init, generator=gen, overwrite_a=True,
+                       device=dev, timer=timer)
+    else:
+        res = spectral.scc(
+            blocks, cfg.atom_k, cfg.atom_d, svd_iters=cfg.svd_iters,
+            kmeans_iters=cfg.kmeans_iters, assign_impl=cfg.assign_impl,
+            svd_method=cfg.svd_method, qr_method=cfg.qr_method, omega=omega,
+            seeds=seeds, generator=gen, device=dev, timer=timer)
+    return res.row_labels, res.col_labels
+
+
 def run_resample(a: torch.Tensor, plan: partition.PartitionPlan,
                  cfg: LAMCConfig, slivers, t: int, *, row_idx=None,
-                 col_idx=None, omega=None, seeds=None, operator=None,
-                 timer=spectral.no_timer):
+                 col_idx=None, omega=None, seeds=None, nmtf_init=None,
+                 operator=None, timer=spectral.no_timer):
     """One resample: extract blocks, co-cluster them (batched), summarize.
 
     ``slivers`` are the anchor features from :func:`anchor_features`.
     ``row_idx`` / ``col_idx`` / ``omega`` / ``seeds`` replace this
-    resample's drawn permutations, sketches and k-means++ seeds. Returns the
-    per-resample tensors ``merging.signature_merge`` consumes.
+    resample's drawn permutations, sketches and SCC k-means++ seeds;
+    ``nmtf_init = (row_seeds (B, k), col_seeds (B, d))`` the NMTF atom's.
+    Returns the per-resample tensors ``merging.signature_merge`` consumes.
 
     ``operator`` (single-block plans only): the prepared sparse operand of
     the whole matrix (``sparse.prepare_operator``). The atom runs on it
@@ -178,13 +196,9 @@ def run_resample(a: torch.Tensor, plan: partition.PartitionPlan,
         with timer("extract"):
             blocks, row_idx, col_idx = extract(a, plan, t, row_idx=row_idx,
                                                col_idx=col_idx)
-    res = spectral.scc(
-        blocks, cfg.atom_k, cfg.atom_d, svd_iters=cfg.svd_iters,
-        kmeans_iters=cfg.kmeans_iters, assign_impl=cfg.assign_impl,
-        svd_method=cfg.svd_method, qr_method=cfg.qr_method, omega=omega,
-        seeds=seeds,
-        generator=seeded_generator(a.device, plan.seed, _ATOM_STREAM, t),
-        device=a.device, timer=timer)
+    row_labels, col_labels = _atom(
+        blocks, cfg, seeded_generator(a.device, plan.seed, _ATOM_STREAM, t),
+        a.device, omega, seeds, nmtf_init, timer)
     del blocks
     with timer("signatures"):
         row_sliver, col_sliver = slivers
@@ -192,13 +206,13 @@ def run_resample(a: torch.Tensor, plan: partition.PartitionPlan,
         row_feats = row_sliver[row_idx]                           # (m, phi, q)
         col_feats = col_sliver[:, col_idx].permute(1, 2, 0)       # (n, psi, q)
         row_sigs, row_counts = merging.atom_signatures(
-            row_feats[blk // plan.n], res.row_labels, cfg.atom_k)
+            row_feats[blk // plan.n], row_labels, cfg.atom_k)
         col_sigs, col_counts = merging.atom_signatures(
-            col_feats[blk % plan.n], res.col_labels, cfg.atom_d)
+            col_feats[blk % plan.n], col_labels, cfg.atom_d)
     return dict(
-        row_sigs=row_sigs, row_counts=row_counts, row_labels=res.row_labels,
+        row_sigs=row_sigs, row_counts=row_counts, row_labels=row_labels,
         row_index=row_idx,
-        col_sigs=col_sigs, col_counts=col_counts, col_labels=res.col_labels,
+        col_sigs=col_sigs, col_counts=col_counts, col_labels=col_labels,
         col_index=col_idx,
     )
 
@@ -219,8 +233,10 @@ def lamc_cocluster(a, cfg: LAMCConfig,
     (``interop.Draws``) replaces the seeded permutations, anchors, sketches
     and k-means++ seeds. ``a`` is moved to ``device``. ``timer(name)``
     returns a context manager around each phase (``prepare_operator``,
-    ``extract``, ``normalize``, ``svd``, ``kmeans``, ``signatures``,
-    ``merge``).
+    ``extract``, ``normalize``, ``svd``, ``kmeans`` or ``nmtf`` (around
+    ``nmtf_init`` and ``nmtf_updates``), ``signatures``, ``merge``).
+    ``cfg.atom="nmtf"`` densifies the blocks of a COO input, as any
+    multi-block plan does.
     """
     validate_config(cfg)
     dev = resolve_device(device)

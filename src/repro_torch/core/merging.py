@@ -7,13 +7,16 @@ aligned by one small weighted k-means over the signatures (best of a few
 seedings), every point casts one vote per resample for its atom's global
 cluster, and the final labels are the vote argmax. This is the reference's
 ``signature_merge``; its merge k-means stays on the plain (``"jnp"``) path,
-as in the reference.
+as in the reference. ``jaccard_merge_host`` is the paper-literal greedy
+union-find merge over member sets, host code for validation on small
+problems.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import kmeans as _kmeans
@@ -27,6 +30,7 @@ __all__ = [
     "memberships_from_votes",
     "finalize_assignment",
     "signature_merge",
+    "jaccard_merge_host",
 ]
 
 
@@ -225,3 +229,92 @@ def signature_merge(
                        row_sigs=row_sigs_out, col_sigs=col_sigs_out,
                        row_mean=row_mean, col_mean=col_mean,
                        row_membership=row_member, col_membership=col_member)
+
+
+# ---------------------------------------------------------------------------
+# Host-side paper-literal hierarchical merge (validation / small problems)
+# ---------------------------------------------------------------------------
+
+
+class _UnionFind:
+    def __init__(self, n: int):
+        self.parent = list(range(n))
+
+    def find(self, x: int) -> int:
+        while self.parent[x] != x:
+            self.parent[x] = self.parent[self.parent[x]]
+            x = self.parent[x]
+        return x
+
+    def union(self, a: int, b: int) -> None:
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            self.parent[max(ra, rb)] = min(ra, rb)
+
+
+def _jaccard(a: set, b: set) -> float:
+    if not a or not b:
+        return 0.0
+    inter = len(a & b)
+    return inter / (len(a) + len(b) - inter)
+
+
+def jaccard_merge_host(
+    atoms: list[dict],
+    n_rows: int,
+    n_cols: int,
+    tau: float = 0.3,
+    min_support: int = 1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Greedy hierarchical union-find merge over atom co-clusters.
+
+    ``atoms``: list of {"rows": set[int], "cols": set[int], "resample": int,
+    "block": (i, j)}. Merge order follows the paper's hierarchy: same
+    row-group across column blocks (row-overlap), then across row-groups
+    (col-overlap), then across resamples (row+col overlap). Returns
+    (row_labels, col_labels) with -1 for unassigned.
+    """
+    n_atoms = len(atoms)
+    uf = _UnionFind(n_atoms)
+
+    def stage(pred, score):
+        for x in range(n_atoms):
+            for y in range(x + 1, n_atoms):
+                if uf.find(x) == uf.find(y):
+                    continue
+                if pred(atoms[x], atoms[y]) and score(atoms[x], atoms[y]) >= tau:
+                    uf.union(x, y)
+
+    # 1) same resample, same row-group, different col blocks: share rows
+    stage(
+        lambda a_, b_: a_["resample"] == b_["resample"] and a_["block"][0] == b_["block"][0],
+        lambda a_, b_: _jaccard(a_["rows"], b_["rows"]),
+    )
+    # 2) same resample, different row-groups: share cols
+    stage(
+        lambda a_, b_: a_["resample"] == b_["resample"],
+        lambda a_, b_: _jaccard(a_["cols"], b_["cols"]),
+    )
+    # 3) across resamples: share both
+    stage(
+        lambda a_, b_: True,
+        lambda a_, b_: 0.5 * (_jaccard(a_["rows"], b_["rows"]) + _jaccard(a_["cols"], b_["cols"])),
+    )
+
+    groups: dict[int, list[int]] = {}
+    for x in range(n_atoms):
+        groups.setdefault(uf.find(x), []).append(x)
+
+    row_votes = np.zeros((n_rows, len(groups)), np.int64)
+    col_votes = np.zeros((n_cols, len(groups)), np.int64)
+    for gi, members in enumerate(groups.values()):
+        if len(members) < min_support:
+            continue
+        for a_idx in members:
+            for r in atoms[a_idx]["rows"]:
+                row_votes[r, gi] += 1
+            for c in atoms[a_idx]["cols"]:
+                col_votes[c, gi] += 1
+    row_labels = np.where(row_votes.sum(1) > 0, row_votes.argmax(1), -1)
+    col_labels = np.where(col_votes.sum(1) > 0, col_votes.argmax(1), -1)
+    return row_labels, col_labels

@@ -19,7 +19,10 @@ and Eq. (4) is solved in closed form for the minimal number of resamples
 Everything here is plain float math (host side): these quantities drive the
 *plan*, not the on-device compute. This is a numpy copy of the reference
 package's plan model with the cost constants unchanged, so both packages
-resolve identical plans for identical arguments.
+resolve identical plans for identical arguments. ``sample_block_failures``
+and ``mc_failure_estimate`` draw from numpy generators, with the
+reference's call sequence, so a seed gives the same masks and estimates in
+both packages.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Sequence
+
+import numpy as np
 
 __all__ = [
     "margin_terms",
@@ -37,6 +42,9 @@ __all__ = [
     "PlanCandidate",
     "plan_partition",
     "resamples_for_failures",
+    "sample_block_failures",
+    "PartitionSpec1D",
+    "mc_failure_estimate",
     "spmm_costs",
     "spmm_route",
     "resolve_spmm_route",
@@ -161,6 +169,40 @@ def resamples_for_failures(
         return base_t_p
     f = min(expected_failed_blocks / max(n_blocks, 1), 0.9)
     return int(math.ceil(base_t_p / (1.0 - f)))
+
+
+def sample_block_failures(
+    seed: int,
+    t_p: int,
+    n_blocks: int,
+    n_failed: int,
+) -> np.ndarray:
+    """``(t_p, n_blocks)`` bool *survival* mask with exactly ``n_failed``
+    blocks down (False) in each resample, drawn uniformly without
+    replacement.
+
+    The simulation half of :func:`resamples_for_failures`: feed the mask
+    to ``lamc_cocluster(..., block_mask=...)`` and the dropped blocks'
+    atoms contribute nothing to the merge — exactly what a died-mid-atom
+    worker looks like to the consensus. Pairing the two checks the paper's
+    T_p fault-budget claim against real injected failures.
+    """
+    if not 0 <= n_failed <= n_blocks:
+        raise ValueError(
+            f"n_failed must be in [0, {n_blocks}], got {n_failed}")
+    rng = np.random.default_rng(seed)
+    mask = np.ones((t_p, n_blocks), dtype=bool)
+    for i in range(t_p):
+        mask[i, rng.choice(n_blocks, size=n_failed, replace=False)] = False
+    return mask
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionSpec1D:
+    """Uniform split of one axis: ``count`` groups of size ``size``."""
+
+    count: int
+    size: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -418,3 +460,35 @@ def plan_partition(
                 best = cand
     assert best is not None, "grid_candidates produced no feasible plan"
     return best
+
+
+def mc_failure_estimate(
+    rng: np.random.Generator,
+    cocluster_rows: int,
+    cocluster_cols: int,
+    n_rows: int,
+    n_cols: int,
+    m: int,
+    n: int,
+    t_m: int,
+    t_n: int,
+    trials: int = 2000,
+) -> float:
+    """Monte-Carlo estimate of the true P(omega_k) for validating Theorem 1.
+
+    Samples random row/col permutations, splits into uniform blocks, and
+    checks whether *no* block receives >= T_m co-cluster rows and >= T_n
+    co-cluster cols. Used by tests to confirm the analytic bound dominates.
+    """
+    phi = n_rows // m
+    psi = n_cols // n
+    failures = 0
+    for _ in range(trials):
+        row_hits = rng.permutation(n_rows)[: m * phi].reshape(m, phi) < cocluster_rows
+        col_hits = rng.permutation(n_cols)[: n * psi].reshape(n, psi) < cocluster_cols
+        rows_per_block = row_hits.sum(axis=1)  # (m,)
+        cols_per_block = col_hits.sum(axis=1)  # (n,)
+        detected = (rows_per_block[:, None] >= t_m) & (cols_per_block[None, :] >= t_n)
+        if not detected.any():
+            failures += 1
+    return failures / trials

@@ -39,7 +39,9 @@ class Draws:
     ``atom_seeds (T_p, B, k)``: each block's k-means++ draws as point
     indices into its stacked embedding ``Z``. ``row_merge_seeds`` /
     ``col_merge_seeds (restarts, K)``: the merge k-means++ draws as atom
-    indices. A draw left None is drawn from the seeded generators.
+    indices. ``nmtf_row_seeds (T_p, B, k)`` / ``nmtf_col_seeds (T_p, B, d)``:
+    the NMTF atom's k-means++ draws as row and column indices of each
+    block. A draw left None is drawn from the seeded generators.
     """
 
     row_idx: torch.Tensor
@@ -50,6 +52,8 @@ class Draws:
     atom_seeds: torch.Tensor | None = None
     row_merge_seeds: torch.Tensor | None = None
     col_merge_seeds: torch.Tensor | None = None
+    nmtf_row_seeds: torch.Tensor | None = None
+    nmtf_col_seeds: torch.Tensor | None = None
 
     def to(self, device: torch.device) -> Draws:
         return Draws(*(None if v is None else v.to(device)
@@ -58,13 +62,17 @@ class Draws:
     def resample(self, t: int) -> dict:
         """Keyword overrides of ``lamc.run_resample`` for resample ``t``."""
         pick = lambda v: None if v is None else v[t]
+        nmtf_init = None if self.nmtf_row_seeds is None else (
+            self.nmtf_row_seeds[t], self.nmtf_col_seeds[t])
         return dict(row_idx=self.row_idx[t], col_idx=self.col_idx[t],
-                    omega=pick(self.omega), seeds=pick(self.atom_seeds))
+                    omega=pick(self.omega), seeds=pick(self.atom_seeds),
+                    nmtf_init=nmtf_init)
 
 
 def draws_from_numpy(row_idx, col_idx, anchor_rows, anchor_cols, omega=None,
                      atom_seeds=None, row_merge_seeds=None,
-                     col_merge_seeds=None) -> Draws:
+                     col_merge_seeds=None, nmtf_row_seeds=None,
+                     nmtf_col_seeds=None) -> Draws:
     """A :class:`Draws` from numpy arrays (indices become int64 tensors)."""
     idx = lambda v: None if v is None else torch.from_numpy(
         np.asarray(v).astype(np.int64))
@@ -74,7 +82,8 @@ def draws_from_numpy(row_idx, col_idx, anchor_rows, anchor_cols, omega=None,
         omega=None if omega is None else torch.from_numpy(
             np.asarray(omega, dtype=np.float32)),
         atom_seeds=idx(atom_seeds), row_merge_seeds=idx(row_merge_seeds),
-        col_merge_seeds=idx(col_merge_seeds))
+        col_merge_seeds=idx(col_merge_seeds), nmtf_row_seeds=idx(nmtf_row_seeds),
+        nmtf_col_seeds=idx(nmtf_col_seeds))
 
 
 def plan_from_numpy(fields) -> PartitionPlan:

@@ -617,3 +617,128 @@ def test_kernels_launch_on_the_tensors_device():
                                ref.flash_attention_ref(q, k, v).float(), rtol=FLASH_BF16_TOL,
                                atol=FLASH_BF16_TOL)
     assert torch.cuda.current_device() == 0
+
+
+# Slice 9: the NMTF atom, the baselines and the examples run plain batched
+# products and the "jnp" k-means (no kernel of their own), plus kernel 3 in
+# scc_full and kernels 3 and 5 in the examples. On the card they must give
+# the CPU path's labels on the same injected draws. One test item: the
+# collected count sets the CPU suite's xdist schedule (ROADMAP.md queue 3).
+NMTF_FACTOR_RTOL = 1e-4      # of max|factor|: 64 updates of float32 products, cuBLAS vs CPU
+
+# (blocks, rows, cols, k, d, seed); each block a planted matrix of its own.
+NMTF_CASES = [(1, 300, 250, 5, 5, 0), (4, 128, 96, 4, 4, 1), (2, 200, 150, 3, 6, 2),
+              (3, 64, 256, 6, 3, 3), (1, 1000, 40, 2, 2, 4), (2, 257, 129, 7, 5, 5),
+              (8, 96, 64, 4, 4, 6), (1, 40, 900, 3, 3, 7)]
+
+
+def _planted_stack(b, m, n, k, d, seed):
+    from repro_torch.data import planted_cocluster_matrix
+
+    rng = np.random.default_rng(seed)
+    return np.stack([planted_cocluster_matrix(rng, m, n, k, d, signal=4.0, noise=0.6).matrix
+                     for _ in range(b)])
+
+
+def _nmtf_on_the_card_matches_the_cpu_path(b, m, n, k, d, seed):
+    from repro_torch.core.nmtf import nmtf
+
+    a = _planted_stack(b, m, n, k, d, seed)
+    rng = np.random.default_rng(seed + 100)
+    init = (np.stack([rng.permutation(m)[:k] for _ in range(b)]),
+            np.stack([rng.permutation(n)[:d] for _ in range(b)]))
+    ops.reset_launch_counts()
+    card = nmtf(a, k, d, init=init)
+    assert not any(ops.launch_counts().values())
+    host = nmtf(a, k, d, init=init, device="cpu")
+    case = (b, m, n, k, d, seed)
+    assert torch.equal(card.row_labels.cpu(), host.row_labels), case
+    assert torch.equal(card.col_labels.cpu(), host.col_labels), case
+    for name in ("f", "s", "g"):
+        mine, theirs = getattr(card, name).cpu(), getattr(host, name)
+        assert float((mine - theirs).abs().max()) <= NMTF_FACTOR_RTOL * float(
+            theirs.abs().max()), (case, name)
+
+
+def _baselines_on_the_card_match_the_cpu_path(name, seed):
+    from repro_torch.core import baselines
+
+    a = _planted_stack(1, 400, 300, 5, 5, seed)[0]
+    rng = np.random.default_rng(seed + 200)
+    if name == "scc_full":       # l + 1 = 4 sketch columns, seeds into Z (700 points)
+        kw = dict(omega=rng.normal(size=(300, 4)).astype(np.float32),
+                  seeds=rng.permutation(700)[:5])
+    else:
+        kw = dict(init=(rng.permutation(400)[:5], rng.permutation(300)[:5]))
+    fn = getattr(baselines, name)
+    ops.reset_launch_counts()
+    card = fn(a, 5, **kw)
+    assert ops.launch_counts()["scale_apply"] == (name == "scc_full"), name
+    host = fn(a, 5, device="cpu", **kw)
+    assert torch.equal(card.row_labels.cpu(), host.row_labels), (name, seed)
+    assert torch.equal(card.col_labels.cpu(), host.col_labels), (name, seed)
+
+
+def _lamc_nmtf_on_the_card_matches_the_cpu_path(kind, nmtf_iters):
+    from repro_torch import interop
+    from repro_torch.core import lamc
+    from repro_torch.core.partition import PartitionPlan
+    from repro_torch.data import planted_cocluster_matrix, to_bcoo
+
+    pc = planted_cocluster_matrix(np.random.default_rng(0), 512, 384, k=4)
+    plan = PartitionPlan(512, 384, 2, 2, 256, 192, 2, seed=0)
+    rng = np.random.default_rng(1)
+    draws = interop.draws_from_numpy(
+        row_idx=np.stack([rng.permutation(512).reshape(2, 256) for _ in range(2)]),
+        col_idx=np.stack([rng.permutation(384).reshape(2, 192) for _ in range(2)]),
+        anchor_rows=rng.permutation(512)[:64], anchor_cols=rng.permutation(384)[:64],
+        nmtf_row_seeds=np.stack([[rng.permutation(256)[:4] for _ in range(4)]
+                                 for _ in range(2)]),
+        nmtf_col_seeds=np.stack([[rng.permutation(192)[:4] for _ in range(4)]
+                                 for _ in range(2)]),
+        row_merge_seeds=np.stack([rng.permutation(32)[:4] for _ in range(4)]),
+        col_merge_seeds=np.stack([rng.permutation(32)[:4] for _ in range(4)]))
+    cfg = lamc.LAMCConfig(4, 4, atom="nmtf", nmtf_iters=nmtf_iters, input_format=kind)
+    a = {dev: pc.matrix if kind == "dense" else to_bcoo(pc.matrix, dev)
+         for dev in ("cuda", "cpu")}
+    ops.reset_launch_counts()
+    card = lamc.lamc_cocluster(a["cuda"], cfg, plan=plan, draws=draws)
+    assert not any(ops.launch_counts().values())
+    host = lamc.lamc_cocluster(a["cpu"], cfg, plan=plan, draws=draws, device="cpu")
+    assert torch.equal(card.row_labels.cpu(), host.row_labels), (kind, nmtf_iters)
+    assert torch.equal(card.col_labels.cpu(), host.col_labels), (kind, nmtf_iters)
+
+
+def _example_runs_on_the_card(name):
+    """An example at its default size, on the card: the fit normalizes
+    through kernel 3 and ``assign_rows`` scores through kernel 5."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    ops.reset_launch_counts()
+    out = mod.main([])
+    counts = ops.launch_counts()
+    assert counts["scale_apply"] >= 1 and counts["cosine_assign"] == 1, counts
+    if name == "torch_quickstart":
+        assert out["lamc_nmi"] >= 0.8 and out["heldout_nmi"] >= 0.8, out
+    else:
+        assert 0.0 <= out["fit_nmi"] <= 1.0, out
+
+
+@pytest.mark.gpu
+def test_slice9_on_the_card_matches_the_cpu_path():
+    _card()
+    for case in NMTF_CASES:
+        _nmtf_on_the_card_matches_the_cpu_path(*case)
+    for name in ("scc_full", "nmtf_full"):
+        for seed in range(4):
+            _baselines_on_the_card_match_the_cpu_path(name, seed)
+    for kind in ("dense", "bcoo"):
+        for nmtf_iters in (16, 64):
+            _lamc_nmtf_on_the_card_matches_the_cpu_path(kind, nmtf_iters)
+    for name in ("torch_quickstart", "torch_text_coclustering"):
+        _example_runs_on_the_card(name)

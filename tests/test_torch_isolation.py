@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, no reference package, the card by default."""
 
 import ast
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -9,13 +10,15 @@ import torch
 
 from repro_torch import checkpoint, interop, streaming
 from repro_torch.configs import reduced
-from repro_torch.core import kmeans, lamc, spectral
+from repro_torch.core import baselines, kmeans, lamc, spectral
+from repro_torch.core.nmtf import nmtf
 from repro_torch.data import to_bcoo
 from repro_torch.launch import profile_serve, serve, serve_lamc
 from repro_torch.models import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = ("torch_quickstart", "torch_text_coclustering")
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -38,7 +41,15 @@ def test_port_file_list_is_complete():
     assert {"lamc.py", "ops.py", "interop.py", "chip_smoke.py", "checkpoint.py",
             "model.py", "assign.py", "registry.py", "serve.py", "serve_lamc.py",
             "metrics.py", "trace.py", "export.py", "transformer.py", "attention.py",
-            "flash_attention.py", "layers.py", "base.py", "qwen3_4b.py"} <= names
+            "flash_attention.py", "layers.py", "base.py", "qwen3_4b.py", "nmtf.py",
+            "baselines.py"} <= names
+
+
+def _example_main(name):
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
 
 
 def _model(a):
@@ -84,3 +95,22 @@ def test_registry_load_defaults_to_the_card(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         streaming.ModelRegistry(str(tmp_path)).load("m")
+
+
+def test_examples_and_slice9_entry_points_stand_alone(monkeypatch):
+    """The two example scripts import neither JAX nor the reference, and the
+    NMTF atom, the baselines and both examples' ``main`` ask for the card by
+    default (one item: the collected count is kept, ROADMAP.md queue 3)."""
+    for name in EXAMPLES:
+        bad = sorted(set(_imported_roots(ROOT / "examples" / f"{name}.py")) & set(FORBIDDEN))
+        assert not bad, f"{name} imports {bad}"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = np.random.default_rng(0).normal(size=(40, 30)).astype(np.float32)
+    for call in (lambda: nmtf(a, 2),
+                 lambda: lamc.lamc_cocluster(a, lamc.LAMCConfig(2, 2, atom="nmtf")),
+                 lambda: baselines.scc_full(a, 2),
+                 lambda: baselines.nmtf_full(a, 2),
+                 lambda: _example_main("torch_quickstart")([]),
+                 lambda: _example_main("torch_text_coclustering")(["--n-docs", "40"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

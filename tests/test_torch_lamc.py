@@ -147,7 +147,7 @@ def test_sparse_options_run(kw):
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(atom="nmtf"), NotImplementedError),
+    (dict(atom="pnmtf"), ValueError),
     (dict(assignment="soft"), ValueError),
     (dict(assign_impl="triton"), ValueError),
 ])

@@ -50,6 +50,28 @@ def _block_draws(blocks, keys, k, d, svd_iters, qr_method):
     return jax.vmap(one)(blocks, keys)
 
 
+@functools.partial(jax.jit, static_argnums=(2, 3))
+def _nmtf_block_draws(blocks, keys, k, d):
+    """Per block: the shifted block and the row and column k-means++ seed
+    centroids of the reference's ``nmtf`` under its block key."""
+
+    def one(block, key):
+        a = block - jnp.minimum(jnp.min(block), 0.0)
+        kf, kg = jax.random.split(key)
+        return a, jkmeans.kmeanspp_init(kf, a, k), jkmeans.kmeanspp_init(kg, a.T, d)
+
+    return jax.vmap(one)(blocks, keys)
+
+
+def nmtf_seeds(blocks, keys, k, d) -> tuple[np.ndarray, np.ndarray]:
+    """The reference ``nmtf``'s k-means++ draws on each block under its key,
+    as point indices: rows ``(B, k)`` and columns ``(B, d)`` of the block."""
+    a, rows, cols = _nmtf_block_draws(jnp.asarray(blocks), keys, k, d)
+    a = np.asarray(a)
+    return (np.stack([seed_indices(ab, cb) for ab, cb in zip(a, rows)]),
+            np.stack([seed_indices(ab.T, cb) for ab, cb in zip(a, cols)]))
+
+
 _run_resample = jax.jit(jlamc.run_resample, static_argnums=(1, 2))
 _kmeanspp = jax.jit(jkmeans.kmeanspp_init, static_argnums=2)
 
@@ -66,12 +88,15 @@ def merge_seeds(key, sigs, counts, k_global, n_restarts):
 
 def lamc_draws(a, plan, cfg) -> dict:
     """Every random draw of the reference's ``lamc_cocluster(a, cfg, plan)``
-    as keyword arguments of ``interop.draws_from_numpy``."""
+    as keyword arguments of ``interop.draws_from_numpy``: the SCC atom's
+    sketches and seeds, or with ``cfg.atom == "nmtf"`` the NMTF atom's
+    row and column seeds. ``a`` is dense; a ``bcoo`` run has the same draws
+    (its blocks are the dense run's bit for bit)."""
     a = jnp.asarray(a)
     kar, kac, kmerge = jax.random.split(jax.random.key(plan.seed + 7), 3)
     anchor_rows = jmerging.anchor_indices(kar, plan.n_rows, cfg.signature_dim)
     anchor_cols = jmerging.anchor_indices(kac, plan.n_cols, cfg.signature_dim)
-    row_idx, col_idx, omega, seeds, outs = [], [], [], [], []
+    row_idx, col_idx, atom, outs = [], [], [], []
     for t in range(plan.t_p):
         blocks, ri, ci = jpartition.extract_blocks(a, plan, t)
         row_idx.append(np.asarray(ri))
@@ -79,17 +104,23 @@ def lamc_draws(a, plan, cfg) -> dict:
         kt = jax.random.fold_in(jax.random.key(plan.seed + 1), t)
         keys = jax.vmap(lambda b: jax.random.fold_in(kt, b))(
             jnp.arange(plan.blocks_per_resample))
-        om, z, cents = _block_draws(blocks, keys, cfg.atom_k, cfg.atom_d,
-                                    cfg.svd_iters, cfg.qr_method)
-        omega.append(np.asarray(om))
-        seeds.append(np.stack([seed_indices(zb, cb) for zb, cb in zip(z, cents)]))
+        if cfg.atom == "nmtf":
+            atom.append(nmtf_seeds(blocks, keys, cfg.atom_k, cfg.atom_d))
+        else:
+            om, z, cents = _block_draws(blocks, keys, cfg.atom_k, cfg.atom_d,
+                                        cfg.svd_iters, cfg.qr_method)
+            atom.append((np.asarray(om), np.stack(
+                [seed_indices(zb, cb) for zb, cb in zip(z, cents)])))
         outs.append(_run_resample(a, plan, cfg, anchor_rows, anchor_cols, t))
+    first, second = (np.stack(v) for v in zip(*atom))
+    atom_draws = (dict(nmtf_row_seeds=first, nmtf_col_seeds=second)
+                  if cfg.atom == "nmtf" else dict(omega=first, atom_seeds=second))
     kr, kc = jax.random.split(kmerge)
     stack = lambda name: np.stack([np.asarray(o[name]) for o in outs])
     return dict(
         row_idx=np.stack(row_idx), col_idx=np.stack(col_idx),
         anchor_rows=np.asarray(anchor_rows), anchor_cols=np.asarray(anchor_cols),
-        omega=np.stack(omega), atom_seeds=np.stack(seeds),
+        **atom_draws,
         row_merge_seeds=merge_seeds(kr, stack("row_sigs"), stack("row_counts"),
                                     cfg.n_row_clusters, cfg.merge_restarts),
         col_merge_seeds=merge_seeds(kc, stack("col_sigs"), stack("col_counts"),
