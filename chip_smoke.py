@@ -84,6 +84,31 @@ Phases, each printing one JSON line:
    (> 0.6 and > 0.5, the reference's bars), ``scale_apply`` launches (one
    for ``scc_full``) and phase 5's LAMC wall time over each (reported, not
    gated).
+14a. ``parity_fit``: the out-of-core fit (``streaming.fit``) of a 600 x 500
+   planted matrix in chunks of 150 on the card and on the CPU with the same
+   injected draws (labels equal), COO chunks against dense ones on the card
+   (labels equal), a run with ``FailureInjector((1, 2))`` and
+   ``save_every=1`` against the uninterrupted run on the card (every model
+   leaf equal), the card's FitState loaded on the CPU (leaf hashes equal),
+   and ``serve_lamc.fit_demo_model`` then ``serve`` on the card.
+14b. ``e2e_stream``: the cell ``lamc_stream_131k``, the dense cell's resident
+   matrix streamed as 16 row chunks of 8,192 rows (views of it) through
+   ``streaming.fit`` with ``col_blocks=8`` (8,192 x 2,048 atom blocks, as
+   phase 5's plan cuts them): wall time, ``FitStats``, peak memory above
+   the resident matrix, launches (256 / 16 / 16 for kernels 1 / 2 / 3),
+   NMI against the planted truth (>= 0.8) and phase 5's labels, the wall
+   time over phase 5's; a run with ``obs`` spans on before it gives the span
+   times (and warms it up); then the same stream with ``save_every=4`` and
+   ``FailureInjector((5, 11))`` must give the same model, leaf for leaf,
+   after two failures.
+15a. ``e2e_stream_ooc``: the cell ``lamc_stream_1.5m_ooc``, a 1,572,864 x
+   16,384 float32 planted stream (96 GiB, more than the card holds) drawn
+   on the card chunk by chunk (192 chunks of 8,192 rows, chunk ``t`` from a
+   generator seeded by ``(--seed, t)``), never held whole, through the same
+   fit: rows/s, ``FitStats`` (1,572,864 rows, 192 chunks, 512 MiB a chunk),
+   peak memory (< 16 GiB), launches (3,072 / 192 / 192), NMI (>= 0.8), and
+   the span times of a run with spans on before it. The kernel lines also give
+   kernels 1-3 at the stream's chunk shape (B = 8).
 15. ``examples``: ``examples/torch_quickstart.py`` and
    ``examples/torch_text_coclustering.py`` at their default sizes, in this
    process, with their scores and launch counts; the quickstart's LAMC and
@@ -110,8 +135,8 @@ Phases, each printing one JSON line:
 20. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-14 run right after phase 5, while the dense cell's matrix is still
-on the card, and phase 15 once it is freed; the sparse cell (phases 6-8)
+Phases 9-14b run right after phase 5, while the dense cell's matrix is still
+on the card, and phases 15a and 15 once it is freed; the sparse cell (phases 6-8)
 follows, and the LM phases run last, after the sparse cell is freed.
 
 Any failed check or error exits nonzero before the last line. Without a
@@ -122,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -145,6 +171,16 @@ E2E_PLAN = (16, 8, 8192, 2048, 1)          # m, n, phi, psi, t_p it resolves to
 ATOM_SHAPE = (128, 10_240, 5, 16)          # B, P = phi + psi, D = l, K at that plan
 MERGE_SHAPE = (4, 2048, 64, 16)            # restarts, atoms, signature dim, K
 SCALE_SHAPE = (128, 8192, 2048)            # the block stack
+
+# The streaming cells: the dense cell's matrix as row chunks of 8,192 rows,
+# each cut into 8 column blocks (the batch plan's 8,192 x 2,048 atom), and an
+# out-of-core stream of 192 such chunks (96 GiB).
+STREAM_CHUNK_ROWS, STREAM_COL_BLOCKS = 8192, 8
+STREAM_KMEANS_SHAPE = (8, 10_240, 5, 16)   # B, P, D, K of one chunk's atoms
+STREAM_SCALE_SHAPE = (8, 8192, 2048)       # one chunk's block stack
+OOC_CHUNKS = 192                           # 1,572,864 rows
+OOC_PEAK_GIB = 16
+STREAM_SPANS = ("blocks", "atoms", "reservoir", "align", "votes", "columns")
 
 # The single-card sparse LAMC cell: the dense cell's matrix with each entry
 # kept with probability 0.1, on the planner's default workers=1.
@@ -514,9 +550,6 @@ def kmeans_rows(shape, gen, d2_atol: float = 1e-4) -> dict:
 
 
 def phase_kernels(gen) -> dict:
-    import torch
-    from repro_torch.kernels import bipartite_normalize, ref
-
     rows = kmeans_rows(ATOM_SHAPE, gen)
 
     # the merge k-means shape, weighted (the main path runs it on the plain
@@ -526,8 +559,18 @@ def phase_kernels(gen) -> dict:
          max_abs_err=err, label_mismatch=frac)
     check_kmeans_edges(gen)
 
-    bs, m, n = SCALE_SHAPE
-    a = torch.randn(SCALE_SHAPE, generator=gen, device="cuda")
+    rows["scale_apply"] = scale_row(SCALE_SHAPE, gen)
+    return rows
+
+
+def scale_row(shape, gen) -> dict:
+    """``scale_apply`` at ``(B, M, N)``: bit-equal to its plain version, then
+    timed beside its bound, the plain version and ``einsum``."""
+    import torch
+    from repro_torch.kernels import bipartite_normalize, ref
+
+    bs, m, n = shape
+    a = torch.randn(shape, generator=gen, device="cuda")
     s1 = torch.rand((bs, m), generator=gen, device="cuda")
     s2 = torch.rand((bs, n), generator=gen, device="cuda")
     out = bipartite_normalize.scale_apply(a, s1, s2)
@@ -537,18 +580,19 @@ def phase_kernels(gen) -> dict:
     check(bool(torch.equal(out, want)), f"scale_apply is not bit-equal (max err {err})")
     del out, want
     bms, bby = bound(4 * (2 * bs * m * n + bs * m + bs * n), 2 * bs * m * n)
-    rows["scale_apply"] = dict(
+    iters = max(10, 1280 // bs)
+    row = dict(
         route="triton", source="src/repro_torch/kernels/bipartite_normalize.py",
         replaces="src/repro/kernels/bipartite_normalize.py:35", max_abs_err=err,
-        shape=list(SCALE_SHAPE),
-        ms=cuda_time(lambda: bipartite_normalize.scale_apply(a, s1, s2), 10),
-        plain_ms=cuda_time(lambda: ref.scale_apply_ref(a, s1, s2), 5),
+        shape=list(shape),
+        ms=cuda_time(lambda: bipartite_normalize.scale_apply(a, s1, s2), iters),
+        plain_ms=cuda_time(lambda: ref.scale_apply_ref(a, s1, s2), iters // 2),
         bound_ms=bms, bound_by=bby,
-        library_ms=cuda_time(lambda: torch.einsum("bij,bi,bj->bij", a, s1, s2), 5))
-    emit("kernel", name="scale_apply", **rows["scale_apply"])
+        library_ms=cuda_time(lambda: torch.einsum("bij,bi,bj->bij", a, s1, s2), iters // 2))
+    emit("kernel", name="scale_apply", **row)
     del a, s1, s2
     torch.cuda.empty_cache()
-    return rows
+    return row
 
 
 def _cosine_inputs(p, q, k, gen):
@@ -1212,6 +1256,274 @@ def phase_baselines(cell: dict) -> dict:
     return {name: counts["scc_full"][name] + counts["nmtf_full"][name] for name in want}
 
 
+def _fit_small_case():
+    """A 600 x 500 planted matrix, a stream config with chunks of 150 (two
+    resamples of four column blocks each) and fixed random draws."""
+    import numpy as np
+    from repro_torch import interop, streaming
+    from repro_torch.data import planted_cocluster_matrix
+
+    pc = planted_cocluster_matrix(np.random.default_rng(0), 600, 500, k=5, d=5,
+                                  signal=4.0, noise=0.6)
+    cfg = streaming.StreamConfig(5, 5, chunk_resamples=2, seed=0, assign_impl="pallas")
+    chunks, b, psi, rank = 4, cfg.blocks_per_chunk, 125, 4     # rank: l + 1 for k = 5
+    rng = np.random.default_rng(4)
+    draws = interop.stream_draws_from_numpy(
+        perms=np.stack([[rng.permutation(500) for _ in range(2)] for _ in range(chunks)]),
+        omega=rng.normal(size=(chunks, b, psi, rank)),
+        atom_seeds=np.stack([[rng.permutation(150 + psi)[:5] for _ in range(b)]
+                             for _ in range(chunks)]),
+        anchor_cols=rng.permutation(500)[:64],
+        align_seeds=np.stack([rng.permutation(chunks * b * 5)[:5] for _ in range(4)]),
+        col_seeds=np.stack([rng.permutation(500)[:5] for _ in range(4)]))
+    return pc, cfg, draws
+
+
+def _models_equal(a, b) -> bool:
+    import torch
+
+    return all(x.dtype == y.dtype and bool(torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def phase_parity_fit():
+    """The out-of-core fit on the small case (see the module doc)."""
+    import io
+
+    import torch
+    from repro_torch import checkpoint, streaming
+    from repro_torch.core.metrics import nmi
+    from repro_torch.launch import serve_lamc
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+
+    pc, cfg, draws = _fit_small_case()
+    chunks = lambda dev, fmt="dense": streaming.iter_row_chunks(pc.matrix, 150, format=fmt,
+                                                                 device=dev)
+    models = {dev: streaming.fit(chunks(dev), cfg, draws=draws, device=dev)[0]
+              for dev in ("cuda", "cpu")}
+    coo, _ = streaming.fit(chunks("cuda", "bcoo"), cfg, draws=draws)
+    plain, _ = streaming.fit(chunks("cuda"), cfg)
+    torch.cuda.synchronize()
+    equal = {f"{side}_card_vs_cpu": bool(torch.equal(
+        getattr(models["cuda"], f"{side}_labels").cpu(), getattr(models["cpu"], f"{side}_labels")))
+        for side in ("row", "col")}
+    equal.update({f"{side}_coo_vs_dense": bool(torch.equal(
+        getattr(coo, f"{side}_labels"), getattr(models["cuda"], f"{side}_labels")))
+        for side in ("row", "col")})
+    with scratch_dir() as tmp:
+        inj = FailureInjector((1, 2))
+        recovered, _ = streaming.fit(chunks("cuda"), cfg, ckpt_dir=f"{tmp}/fit", save_every=1,
+                                     failure_injector=inj)
+        host, folded = streaming.load_fit_state(f"{tmp}/fit", cfg, device="cpu")
+        streaming.save_fit_state(f"{tmp}/again", host)
+        hashes_equal = (checkpoint.read_manifest(f"{tmp}/fit", folded)["leaves"]
+                        == checkpoint.read_manifest(f"{tmp}/again", folded)["leaves"])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            serve_lamc.fit_demo_model(f"{tmp}/demo")
+        served = serve_lamc.serve(f"{tmp}/demo", batch=8, requests=4, warmup=1)
+    recovered_equal = _models_equal(recovered, plain)
+    emit("parity_fit", labels_equal=equal, recovered_equal=recovered_equal,
+         failures_fired=sorted(inj._fired), fit_state_chunks=folded,
+         leaf_hashes_equal=hashes_equal,
+         row_nmi_truth=nmi(models["cuda"].row_labels.cpu().numpy(), pc.row_labels),
+         col_nmi_truth=nmi(models["cuda"].col_labels.cpu().numpy(), pc.col_labels),
+         fit_demo=printed.getvalue().strip(),
+         fit_demo_serve=dict(rows=served["serve_assign_rows_rows"],
+                             p50_us=served["serve_assign_rows_p50_us"]))
+    check(all(equal.values()), f"fit labels differ: {equal}")
+    check(recovered_equal and inj._fired == {1, 2},
+          "the recovered fit on the card differs from the uninterrupted one")
+    check(folded == 4 and hashes_equal,
+          "the card's FitState does not load on the CPU with equal leaf hashes")
+    check(served["serve_assign_rows_rows"] == 32, f"fit-demo serve: {served}")
+
+
+def _span_ms(trace) -> dict:
+    """Milliseconds per span name over a trace, for STREAM_SPANS."""
+    out = dict.fromkeys(STREAM_SPANS, 0.0)
+    for sp, _, _ in trace.walk():
+        if sp.name in out:
+            out[sp.name] += sp.duration_s * 1e3
+    return out
+
+
+def _stream_spans(fit_once) -> dict:
+    """``fit_once()`` with ``obs`` spans on (each ``blocks``, ``atoms`` and
+    finalize span ends in a device synchronization): span times, the wall
+    time of that run. It runs before the timed run and warms it up (library
+    handles, the allocator's pool)."""
+    import torch
+    from repro_torch import obs
+
+    obs.configure(enabled=True)
+    try:
+        obs.reset_trace()
+        t0 = time.perf_counter()
+        fit_once()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        spans = _span_ms(obs.current_trace())
+    finally:
+        obs.configure(enabled=False)
+        obs.reset_trace()
+    return dict(span_ms=spans, wall_s_with_spans=wall)
+
+
+def _stream_config(seed: int):
+    from repro_torch import streaming
+    from repro_torch.core import lamc
+
+    return streaming.stream_config_from_lamc(lamc.LAMCConfig(**E2E_CONFIG, seed=seed),
+                                             col_blocks=STREAM_COL_BLOCKS)
+
+
+def _stream_launches(chunks: int) -> dict:
+    from repro_torch.core import lamc
+
+    iters = lamc.LAMCConfig(**E2E_CONFIG).kmeans_iters
+    return {"kmeans_update": chunks * iters, "kmeans_assign": chunks, "scale_apply": chunks,
+            "spmm": 0, "spmm_t": 0, "spmm_ata": 0, "cosine_assign": 0, "cosine_topk": 0,
+            "flash_attention": 0}
+
+
+def phase_e2e_stream(cell: dict, seed: int, smi: str) -> dict:
+    """The dense cell's resident matrix through the out-of-core fit (see the
+    module doc)."""
+    import torch
+    from repro_torch import obs, streaming
+    from repro_torch.core.metrics import nmi
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.fault_tolerance import FailureInjector
+
+    a, res = cell["matrix"], cell["result"]
+    cfg = _stream_config(seed)
+    chunks = lambda: streaming.iter_row_chunks(a, STREAM_CHUNK_ROWS)
+    first = next(chunks())
+    check(first.untyped_storage().data_ptr() == a.untyped_storage().data_ptr(),
+          "the stream's chunks are copies, not views of the resident matrix")
+    del first
+    spans = _stream_spans(lambda: streaming.fit(chunks(), cfg))
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, stats = streaming.fit(chunks(), cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak_above = (torch.cuda.max_memory_allocated() - resident) / 2**30
+
+    registry = obs.get_registry()
+    failed_before = registry.counter("recovery_failures").value
+    inj = FailureInjector((5, 11))
+    with scratch_dir() as tmp:
+        t0 = time.perf_counter()
+        recovered, _ = streaming.fit(chunks(), cfg, ckpt_dir=f"{tmp}/fit", save_every=4,
+                                     failure_injector=inj)
+        torch.cuda.synchronize()
+        recovered_wall = time.perf_counter() - t0
+    failures = registry.counter("recovery_failures").value - failed_before
+    recovered_equal = _models_equal(recovered, model)
+
+    row_pred, col_pred = model.row_labels.cpu().numpy(), model.col_labels.cpu().numpy()
+    scores = _scores(model.row_labels, model.col_labels, cell["row_truth"], cell["col_truth"])
+    scores.update(row_nmi_vs_batch=nmi(row_pred, res.row_labels.cpu().numpy()),
+                  col_nmi_vs_batch=nmi(col_pred, res.col_labels.cpu().numpy()))
+    emit("e2e_stream", cell="lamc_stream_131k", nvidia_smi=smi, rows=E2E_ROWS, cols=E2E_COLS,
+         k=E2E_K, chunk_rows=STREAM_CHUNK_ROWS, config=dataclasses.asdict(cfg),
+         wall_s=wall, batch_wall_s=cell["wall_s"], wall_over_batch=wall / cell["wall_s"],
+         fit_stats=stats._asdict(), peak_above_resident_gib=peak_above,
+         resident_gib=resident / 2**30, launches=counts, **spans,
+         recovery=dict(save_every=4, fail_at=[5, 11], failures=failures,
+                       model_equal=recovered_equal, wall_s=recovered_wall),
+         **scores)
+    want = _stream_launches(E2E_ROWS // STREAM_CHUNK_ROWS)
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(stats.rows_seen == E2E_ROWS and stats.chunks == E2E_ROWS // STREAM_CHUNK_ROWS,
+          f"fit stats {stats}")
+    check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
+          f"stream NMI against the planted truth below 0.8: {scores}")
+    check(recovered_equal and failures == 2 and inj._fired == {5, 11},
+          f"the recovered stream differs from the uninterrupted one "
+          f"(failures {failures}, fired {sorted(inj._fired)})")
+    return counts
+
+
+def phase_e2e_stream_ooc(seed: int, smi: str) -> dict:
+    """A 96 GiB planted stream drawn on the card chunk by chunk through the
+    out-of-core fit (see the module doc)."""
+    import torch
+    from repro_torch import streaming
+    from repro_torch.device import seeded_generator
+    from repro_torch.kernels import ops
+
+    cfg = _stream_config(seed)
+    rows, cols, k = STREAM_CHUNK_ROWS, E2E_COLS, E2E_K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    col_truth = (torch.arange(cols, device="cuda") % k)[
+        torch.randperm(cols, generator=gen, device="cuda")]
+    mu = torch.rand((k, k), generator=gen, device="cuda") * 4.0
+    truth, draw_events = [], []
+
+    def stream():
+        """Chunk ``t``: balanced-in-expectation row labels, checkerboard means
+        and N(0, 1) noise from a generator seeded by ``(seed, t)``."""
+        truth.clear()
+        draw_events.clear()
+        for t in range(OOC_CHUNKS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            g = seeded_generator(dev, seed, t)
+            labels = torch.randint(0, k, (rows,), generator=g, device="cuda")
+            chunk = torch.randn((rows, cols), generator=g, device="cuda")
+            chunk += mu[labels][:, col_truth]
+            end.record()
+            truth.append(labels)
+            draw_events.append((start, end))
+            yield chunk
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spans = _stream_spans(lambda: streaming.fit(stream(), cfg))
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model, stats = streaming.fit(stream(), cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    draw_ms = sum(s.elapsed_time(e) for s, e in draw_events)
+    scores = _scores(model.row_labels, model.col_labels, torch.cat(truth), col_truth)
+    stream_gib = OOC_CHUNKS * rows * cols * 4 / 2**30
+    emit("e2e_stream_ooc", cell="lamc_stream_1.5m_ooc", nvidia_smi=smi,
+         rows=OOC_CHUNKS * rows, cols=cols, k=k, chunk_rows=rows, stream_gib=stream_gib,
+         card_gib=torch.cuda.get_device_properties(0).total_memory / 2**30,
+         config=dataclasses.asdict(cfg), wall_s=wall,
+         rows_per_s=OOC_CHUNKS * rows / wall, draw_ms=draw_ms,
+         fit_stats=stats._asdict(), max_memory_allocated_gib=peak,
+         held_before_gib=held / 2**30, launches=counts, **spans, **scores)
+    want = _stream_launches(OOC_CHUNKS)
+    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(stats.rows_seen == OOC_CHUNKS * rows and stats.chunks == OOC_CHUNKS
+          and stats.peak_chunk_bytes == rows * cols * 4, f"fit stats {stats}")
+    check(peak < OOC_PEAK_GIB, f"peak device memory {peak:.2f} GiB, limit {OOC_PEAK_GIB}")
+    check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
+          f"out-of-core NMI against the planted truth below 0.8: {scores}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_kernels_stream(gen) -> dict:
+    """Kernels 1-3 at the stream's chunk shape (B = 8)."""
+    rows = kmeans_rows(STREAM_KMEANS_SHAPE, gen)
+    rows["scale_apply"] = scale_row(STREAM_SCALE_SHAPE, gen)
+    return rows
+
+
 def _load_example(name: str):
     import importlib.util
 
@@ -1828,8 +2140,13 @@ def main() -> int:
         phase_parity_nmtf()
         nmtf_counts = phase_e2e_nmtf(dense_cell, args.seed)
         baseline_counts = phase_baselines(dense_cell)
+        phase_parity_fit()
+        stream_counts = phase_e2e_stream(dense_cell, args.seed, smi)
         del dense_cell
         torch.cuda.empty_cache()
+        ooc_counts = phase_e2e_stream_ooc(args.seed, smi)
+        stream_rows = phase_kernels_stream(
+            torch.Generator(device="cuda").manual_seed(args.seed + 5))
         example_counts = phase_examples()
         gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         cell = planted_sparse_on_card(E2E_ROWS, E2E_COLS, E2E_K, SPARSE_DENSITY, gen)
@@ -1849,7 +2166,8 @@ def main() -> int:
     cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts,
              "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts,
              "lamc_dense_131k_nmtf": nmtf_counts, "baselines_131k": baseline_counts,
-             "examples": example_counts}
+             "examples": example_counts, "lamc_stream_131k": stream_counts,
+             "lamc_stream_1.5m_ooc": ooc_counts}
     summary = []
     for name, row in rows.items():
         # launches: per run of the first cell that launches the kernel
@@ -1863,6 +2181,10 @@ def main() -> int:
             entry["at_k128_d128"] = {key: wide_kmeans[name][key] for key in
                                      ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
                                       "max_abs_err", "library_ms", "label_mismatch")}
+        if name in stream_rows:
+            entry["at_stream_chunk"] = {key: stream_rows[name].get(key) for key in
+                                        ("shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                                         "max_abs_err", "library_ms")}
         summary.append(entry)
     print(smi, flush=True)
     print(json.dumps({"kernels": summary}), flush=True)

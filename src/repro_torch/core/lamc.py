@@ -40,7 +40,7 @@ from . import sparse as _sparse
 from .nmtf import nmtf as _nmtf
 
 __all__ = ["LAMCConfig", "LAMCResult", "lamc_cocluster", "run_resample",
-           "anchor_features", "validate_config"]
+           "anchor_features", "validate_config", "validate_assignment"]
 
 # Stream ids of ``seeded_generator(device, plan.seed, stream, ...)``; stream 0
 # is the resample permutations (``partition``).
@@ -106,13 +106,9 @@ class LAMCResult(NamedTuple):
     col_membership: torch.Tensor | None = None  # (N, K_col) bool
 
 
-def validate_config(cfg: LAMCConfig) -> None:
-    """Raise on configurations that are wrong."""
-    if cfg.input_format not in ("dense", "bcoo"):
-        raise ValueError(f"unknown input_format {cfg.input_format!r}")
-    _sparse.validate_spmm_impl(cfg.spmm_impl)
-    if cfg.atom not in ("scc", "nmtf"):
-        raise ValueError(f"unknown atom method {cfg.atom!r}")
+def validate_assignment(cfg) -> None:
+    """Raise on wrong assignment knobs. ``cfg`` is any configuration that
+    carries them: an ``LAMCConfig`` or a ``streaming.StreamConfig``."""
     if cfg.assignment not in ("hard", "overlap"):
         raise ValueError(
             f"assignment must be 'hard' or 'overlap', got {cfg.assignment!r}")
@@ -122,6 +118,16 @@ def validate_config(cfg: LAMCConfig) -> None:
     if not 0 <= cfg.min_membership <= min(cfg.n_row_clusters, cfg.n_col_clusters):
         raise ValueError(
             f"min_membership must be in [0, n_clusters], got {cfg.min_membership}")
+
+
+def validate_config(cfg: LAMCConfig) -> None:
+    """Raise on configurations that are wrong."""
+    if cfg.input_format not in ("dense", "bcoo"):
+        raise ValueError(f"unknown input_format {cfg.input_format!r}")
+    _sparse.validate_spmm_impl(cfg.spmm_impl)
+    if cfg.atom not in ("scc", "nmtf"):
+        raise ValueError(f"unknown atom method {cfg.atom!r}")
+    validate_assignment(cfg)
 
 
 def anchor_features(a: torch.Tensor, anchor_rows: torch.Tensor,

@@ -22,9 +22,11 @@ from .core.partition import PartitionPlan
 from .device import resolve_device
 from .kernels.spmm import BlockSparseMatrix
 from .models import transformer
+from .streaming.fit import StreamDraws
 from .streaming.model import CoclusterModel
 
-__all__ = ["Draws", "draws_from_numpy", "plan_from_numpy", "result_to_numpy",
+__all__ = ["Draws", "draws_from_numpy", "stream_draws_from_numpy",
+           "plan_from_numpy", "result_to_numpy",
            "coo_from_numpy", "block_sparse_from_numpy", "model_from_numpy",
            "lm_params_from_numpy"]
 
@@ -84,6 +86,20 @@ def draws_from_numpy(row_idx, col_idx, anchor_rows, anchor_cols, omega=None,
         atom_seeds=idx(atom_seeds), row_merge_seeds=idx(row_merge_seeds),
         col_merge_seeds=idx(col_merge_seeds), nmtf_row_seeds=idx(nmtf_row_seeds),
         nmtf_col_seeds=idx(nmtf_col_seeds))
+
+
+def stream_draws_from_numpy(perms, omega, atom_seeds, anchor_cols, align_seeds,
+                            col_seeds) -> StreamDraws:
+    """A streaming fit's :class:`~repro_torch.streaming.StreamDraws` from
+    numpy arrays (indices become int64 tensors, the sketch float32); a pair
+    of atom seeds stays a pair."""
+    idx = lambda v: torch.from_numpy(np.asarray(v).astype(np.int64))
+    return StreamDraws(
+        perms=idx(perms), omega=torch.from_numpy(np.asarray(omega, dtype=np.float32)),
+        atom_seeds=(tuple(idx(s) for s in atom_seeds) if isinstance(atom_seeds, tuple)
+                    else idx(atom_seeds)),
+        anchor_cols=idx(anchor_cols), align_seeds=idx(align_seeds),
+        col_seeds=idx(col_seeds))
 
 
 def plan_from_numpy(fields) -> PartitionPlan:

@@ -8,11 +8,9 @@ latency, QPS, rows served and rejected batches under the reference's keys
 through a full :class:`streaming.AssignService` (admission queue, coalescer,
 worker replicas).
 
-The reference's ``--fit-demo`` (fit a small planted model out of core, then
-serve it) needs ``streaming.fit``, which is not ported yet (ROADMAP.md, the
-port's item 11): ``fit_demo_model`` and the flag raise
-``NotImplementedError`` until it is, and nothing else stands in for them.
-Fit with ``lamc_cocluster`` and ``model_from_result``, then ``save_model``.
+``--fit-demo`` first fits a small planted model out of core
+(``streaming.fit`` over row chunks, on ``--device``) and saves it to
+``--ckpt``, so the launcher runs end to end with no model at hand.
 
 Request validation, admission and hot swap live in ``streaming.serve``.
 Malformed requests (wrong width or rank, non-finite payloads) are rejected
@@ -33,19 +31,29 @@ import numpy as np
 import torch
 
 from .. import obs, streaming
+from ..data import planted_cocluster_matrix
 from ..device import resolve_device
 
 __all__ = ["fit_demo_model", "validate_request", "serve", "serve_service", "main"]
 
 
 def fit_demo_model(ckpt_dir: str, *, n_rows: int = 1024, n_cols: int = 512,
-                   k: int = 5, chunk_rows: int = 256, seed: int = 0) -> None:
-    """The reference's out-of-core demo fit. It needs ``streaming.fit``,
-    which the port does not have yet, so it raises."""
-    raise NotImplementedError(
-        "fit_demo_model needs streaming.fit, the out-of-core fit, which is not "
-        "ported yet (ROADMAP.md, port item 11); fit with lamc_cocluster + "
-        "model_from_result, save_model, then serve that checkpoint")
+                   k: int = 5, chunk_rows: int = 256, seed: int = 0,
+                   device: str | torch.device = "cuda") -> None:
+    """Out-of-core fit of a planted matrix on ``device``; save the model."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    data = planted_cocluster_matrix(rng, n_rows, n_cols, k=k, d=k,
+                                    signal=4.0, noise=0.6)
+    cfg = streaming.StreamConfig(n_row_clusters=k, n_col_clusters=k, seed=seed)
+    model, stats = streaming.fit(
+        streaming.iter_row_chunks(data.matrix, chunk_rows, device=dev), cfg,
+        device=dev)
+    streaming.save_model(ckpt_dir, model, extra={
+        "fit_stats": {"rows_seen": stats.rows_seen, "chunks": stats.chunks,
+                      "rows_per_s": round(stats.rows_per_s, 1)}})
+    print(f"fit-demo: {stats.rows_seen}x{stats.n_cols} in {stats.chunks} "
+          f"chunks ({stats.rows_per_s:.0f} rows/s) -> saved to {ckpt_dir}")
 
 
 def validate_request(x, dim: int) -> str | None:
@@ -209,8 +217,8 @@ def main(argv=None):
     ap.add_argument("--ckpt", required=True, help="model checkpoint directory")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     ap.add_argument("--fit-demo", action="store_true",
-                    help="fit + save a small planted model first (needs "
-                         "streaming.fit: not ported yet, raises)")
+                    help="fit + save a small planted model first (out of "
+                         "core, on --device)")
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--rows", type=int, default=None,
@@ -236,7 +244,7 @@ def main(argv=None):
     if obs.enabled():
         obs.reset_trace()
     if args.fit_demo:
-        fit_demo_model(args.ckpt)
+        fit_demo_model(args.ckpt, device=args.device)
     axes = ["rows", "cols"] if args.axis == "both" else [args.axis]
     report = {}
     for axis in axes:

@@ -1,6 +1,7 @@
-"""Serving a fitted co-clustering: model artifact, assignment, registry, service.
+"""Streaming co-clustering: out-of-core fit, model artifact, assignment, service.
 
     model.py    CoclusterModel artifact + checkpoint round-trip
+    fit.py      out-of-core fit over row chunks (dense or COO), resumable
     assign.py   online out-of-sample assignment (the cosine kernels)
     registry.py named, versioned model store (config hash + fingerprint
                 + metrics per version)
@@ -8,11 +9,8 @@
                 fixed-shape batch coalescing, load shedding, hot model swap
 
 ``launch/serve_lamc.py`` is the thin launcher on top. Names are the
-reference package's. Its out-of-core fit (``fit``, ``StreamConfig``,
-``StreamingCocluster``, ``iter_row_chunks``, ``save_fit_state`` /
-``load_fit_state``, ``stream_config_from_lamc``) is not ported yet; a model
-comes from ``lamc_cocluster`` + ``model_from_result``, or from a checkpoint
-either package saved.
+reference package's; ``StreamDraws`` (the fit's injectable draws) is the
+port's own.
 """
 
 from .assign import (
@@ -22,6 +20,18 @@ from .assign import (
     assign_cols_topk,
     assign_rows,
     assign_rows_topk,
+)
+from .fit import (
+    FIT_STATE_KIND,
+    FitStats,
+    StreamConfig,
+    StreamDraws,
+    StreamingCocluster,
+    fit,
+    iter_row_chunks,
+    load_fit_state,
+    save_fit_state,
+    stream_config_from_lamc,
 )
 from .model import (
     MODEL_KIND,
@@ -50,6 +60,9 @@ from .serve import (
 __all__ = [
     "CoclusterModel", "ModelLoadError", "MODEL_KIND",
     "model_from_result", "model_memberships", "save_model", "load_model",
+    "StreamConfig", "StreamingCocluster", "FitStats", "fit",
+    "iter_row_chunks", "stream_config_from_lamc",
+    "FIT_STATE_KIND", "save_fit_state", "load_fit_state", "StreamDraws",
     "AssignResult", "TopKAssignResult", "assign_rows", "assign_cols",
     "assign_rows_topk", "assign_cols_topk",
     "ModelRegistry", "RegistryEntry", "config_hash", "model_fingerprint",

@@ -547,10 +547,28 @@ def test_serve_launcher_reports_the_reference_keys(fitted, tmp_path):
     assert svc["serve_svc_rows_rows"] == 8 and svc["_batches"] >= 1
 
 
-def test_fit_demo_waits_for_the_streaming_fit(tmp_path):
-    """``--fit-demo`` needs ``streaming.fit``, which is not ported: it raises
-    and names the roadmap item instead of fitting something else."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        serve_lamc.fit_demo_model(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="streaming.fit"):
-        serve_lamc.main(["--ckpt", str(tmp_path), "--fit-demo", "--device", "cpu"])
+def test_fit_demo_waits_for_the_streaming_fit(tmp_path, capsys):
+    """The reference's ``TestServeDriver`` on the port: ``fit_demo_model``
+    (the out-of-core ``streaming.fit``) saves a model that ``serve`` loads
+    and serves, a partial final batch counts only its real rows, and
+    ``--fit-demo`` runs fit, save and serve from the command line."""
+    path = str(tmp_path / "model")
+    serve_lamc.fit_demo_model(path, n_rows=256, n_cols=128, k=3, chunk_rows=128,
+                              device=CPU)
+    assert "fit-demo: 256x128 in 2 chunks" in capsys.readouterr().out
+    out = serve_lamc.serve(path, batch=8, requests=4, warmup=1, axis="rows",
+                           device=CPU)
+    assert out["serve_assign_rows_p50_us"] > 0 and out["serve_assign_rows_qps"] > 0
+    assert out["_model_kind"] == streaming.MODEL_KIND
+    assert len(out["_labels_sample"]) == 8
+    _, meta = streaming.load_model(path, device=CPU)
+    assert meta["fit_stats"]["rows_seen"] == 256 and meta["fit_stats"]["chunks"] == 2
+    tail = serve_lamc.serve(path, batch=16, rows=40, warmup=1, axis="rows", device=CPU)
+    assert tail["serve_assign_rows_rows"] == 40 and len(tail["_labels_sample"]) == 8
+    cli = str(tmp_path / "cli")
+    serve_lamc.main(["--ckpt", cli, "--fit-demo", "--device", "cpu", "--batch", "8",
+                     "--requests", "2", "--warmup", "1"])
+    printed = capsys.readouterr().out
+    assert "fit-demo: 1024x512 in 4 chunks" in printed
+    assert '"serve_assign_rows_rows": 16' in printed
+    assert '"serve_assign_cols_rows": 16' in printed

@@ -10,6 +10,7 @@ stay valid when the two packages' singular vectors differ in sign.
 from __future__ import annotations
 
 import functools
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +176,54 @@ def operator_draws(a, plan, cfg) -> dict:
         col_merge_seeds=merge_seeds(kc, stack("col_sigs"), stack("col_counts"),
                                     cfg.n_col_clusters, cfg.merge_restarts),
     )
+
+
+def stream_draws(chunks, cfg):
+    """Every random draw of the reference's ``repro.streaming.fit`` over the
+    dense numpy ``chunks`` under its ``StreamConfig`` ``cfg``, as keyword
+    arguments of ``interop.stream_draws_from_numpy``, and the reference's
+    fitter after folding them (``finalize()`` gives the reference's model).
+
+    Chunk ``t``'s permutations come from ``fold_in(fold_in(key(seed), t),
+    resample)``; its block keys from ``fold_in(fold_in(key(seed + 1), t),
+    block)``, whose sketches and k-means++ seeds ``_block_draws`` gives. The
+    alignment and column seeds are the merge k-means++ draws under
+    ``fold_in(key(seed + 7), 2)`` and ``(..., 3)`` (``merge_seeds``).
+    """
+    sfit = importlib.import_module("repro.streaming.fit")
+    fitter = sfit.StreamingCocluster(cfg)
+    b, cb = cfg.blocks_per_chunk, cfg.col_blocks
+    perms, omega, seeds = [], [], []
+    for t, chunk in enumerate(chunks):
+        chunk = np.asarray(chunk, np.float32)
+        fitter.partial_fit(jnp.asarray(chunk))
+        r, n = chunk.shape
+        psi = n // cb
+        key_t = jax.random.fold_in(jax.random.key(cfg.seed), t)
+        p = np.stack([np.asarray(jax.random.permutation(jax.random.fold_in(key_t, ri),
+                                                        n))[: cb * psi]
+                      for ri in range(cfg.chunk_resamples)])
+        blocks = chunk[:, p.reshape(-1)].reshape(r, b, psi).transpose(1, 0, 2)
+        kt = jax.random.fold_in(jax.random.key(cfg.seed + 1), t)
+        keys = jax.vmap(lambda i: jax.random.fold_in(kt, i))(jnp.arange(b))
+        om, z, cents = _block_draws(jnp.asarray(blocks), keys, cfg.atom_k, cfg.atom_d,
+                                    cfg.svd_iters, cfg.qr_method)
+        perms.append(p)
+        omega.append(np.asarray(om))
+        seeds.append(np.stack([seed_indices(zb, cb_) for zb, cb_ in zip(z, cents)]))
+    kroot = jax.random.key(cfg.seed + 7)
+    fill = max(fitter._res_fill, 1)
+    feats_c = jnp.asarray(fitter._res_vals[:fill]).T
+    feats_c = feats_c - jnp.mean(feats_c, axis=0, keepdims=True)
+    feats_c = feats_c / jnp.maximum(jnp.linalg.norm(feats_c, axis=1, keepdims=True), 1e-12)
+    draws = dict(
+        perms=np.stack(perms), omega=np.stack(omega), atom_seeds=np.stack(seeds),
+        anchor_cols=np.asarray(fitter._anchor_cols),
+        align_seeds=merge_seeds(jax.random.fold_in(kroot, 2),
+                                np.concatenate(fitter._atom_sigs),
+                                np.concatenate(fitter._atom_cnts),
+                                cfg.n_row_clusters, cfg.merge_restarts),
+        col_seeds=merge_seeds(jax.random.fold_in(kroot, 3), feats_c,
+                              np.ones(feats_c.shape[0], np.float32),
+                              cfg.n_col_clusters, cfg.merge_restarts))
+    return draws, fitter
