@@ -101,6 +101,37 @@ Phases, each printing one JSON line:
    times (and warms it up); then the same stream with ``save_every=4`` and
    ``FailureInjector((5, 11))`` must give the same model, leaf for leaf,
    after two failures.
+14c. ``parity_dist``: the small case through ``core.distributed.
+   distributed_lamc`` on a one-rank NCCL mesh (this process) with the same
+   injected draws: labels, votes and memberships equal ``lamc_cocluster``'s
+   on the card, labels equal the CPU path's.
+14d. ``e2e_dist`` (cell ``lamc_dense_131k_dist``): phase 5's matrix and plan
+   through ``distributed_lamc`` on that one-rank NCCL mesh: labels, votes
+   and memberships equal phase 5's; NMI >= 0.8; wall, phase times, peak,
+   launches 16 / 1 / 1.
+14e. ``e2e_dist_shared4`` (``lamc_dense_131k_dist_shared4``): the same on
+   four ranks spawned on the one card (gloo, which stages the collectives
+   through host memory; NCCL refuses two ranks on one device), mesh (data =
+   2, model = 2), each rank holding its own copy of its 2 GiB shard and 32
+   blocks: the bytes the scatter moved, each rank's wall, phase times, peak
+   and launches (16 / 1 / 1); labels equal phase 5's (or, where a batched
+   library call gives other bits at 32 blocks than at 128, which the line
+   then names, NMI >= 0.99 against them), NMI >= 0.8. Not a scaling
+   figure: four ranks share one card and the scatter goes through the host.
+14f. ``e2e_dist_pods`` (``lamc_dense_131k_dist_pods``): phase 5's matrix at
+   t_p = 2 on two ranks, mesh (pod = 2, data = 1), one resample each
+   (``resample_axis="pod"``), each holding the whole matrix: labels equal
+   the one-process t_p = 2 fit's, NMI >= 0.8, launches 16 / 1 / 1 a rank.
+14g. ``serve_sharded`` (``lamc_dense_131k_serve_sharded``): phase 5's model
+   in an ``AssignService`` whose tables are cluster-sharded over four slices
+   of the card: rows (B = 1, 64, 1,024) and columns, k = 1 and top-4, and COO
+   features get the unsharded service's labels and score bits; p50 beside
+   the unsharded p50.
+14h. ``elastic`` (``lamc_stream_131k_elastic``): the stream of 14b
+   checkpointed after 4 chunks, restored onto four ranks sharing the card
+   (``fault_tolerance.elastic_restore`` with ``stream_state_specs``, each
+   rank holding its shards) and continued: every rank's model equals 14b's,
+   leaf for leaf; launches 192 / 12 / 12 a rank.
 15a. ``e2e_stream_ooc``: the cell ``lamc_stream_1.5m_ooc``, a 1,572,864 x
    16,384 float32 planted stream (96 GiB, more than the card holds) drawn
    on the card chunk by chunk (192 chunks of 8,192 rows, chunk ``t`` from a
@@ -135,8 +166,10 @@ Phases, each printing one JSON line:
 20. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
 
-Phases 9-14b run right after phase 5, while the dense cell's matrix is still
-on the card, and phases 15a and 15 once it is freed; the sparse cell (phases 6-8)
+Phases 9-14h run right after phase 5, while the dense cell's matrix is still
+on the card (the multi-rank phases spawn their ranks with the ``spawn``
+method after phase 2 built every kernel, and hand them the matrix through
+CUDA IPC), and phases 15a and 15 once it is freed; the sparse cell (phases 6-8)
 follows, and the LM phases run last, after the sparse cell is freed.
 
 Any failed check or error exits nonzero before the last line. Without a
@@ -179,6 +212,16 @@ STREAM_CHUNK_ROWS, STREAM_COL_BLOCKS = 8192, 8
 STREAM_KMEANS_SHAPE = (8, 10_240, 5, 16)   # B, P, D, K of one chunk's atoms
 STREAM_SCALE_SHAPE = (8, 8192, 2048)       # one chunk's block stack
 OOC_CHUNKS = 192                           # 1,572,864 rows
+ELASTIC_AFTER = 4                          # chunks folded before the elastic checkpoint
+
+# The distributed cells: ranks spawned on one card (gloo; NCCL refuses two
+# ranks on one device) wait at most this long for each other; the results
+# every distributed run must give exactly.
+DIST_TIMEOUT_S = 600
+DIST_EXACT = ("row_labels", "col_labels", "row_votes", "col_votes", "row_membership",
+              "col_membership")
+SERVE_SLICES = 4                           # cluster slices of the sharded service
+SERVE_P50_REQUESTS = 50
 OOC_PEAK_GIB = 16
 STREAM_SPANS = ("blocks", "atoms", "reservoir", "align", "votes", "columns")
 
@@ -1447,7 +1490,454 @@ def phase_e2e_stream(cell: dict, seed: int, smi: str) -> dict:
     check(recovered_equal and failures == 2 and inj._fired == {5, 11},
           f"the recovered stream differs from the uninterrupted one "
           f"(failures {failures}, fired {sorted(inj._fired)})")
+    cell["stream_model"] = model
     return counts
+
+
+# ----------------------------------------------------------- distributed LAMC
+
+
+def _rank_main(fn, rank, world, store_path, args, out):
+    """One spawned rank: join a gloo group through a FileStore, run ``fn``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                                world_size=world,
+                                timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        try:
+            out.put((rank, "ok", fn(rank, *args)))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — the parent reports it and fails the phase
+        out.put((rank, "error", traceback.format_exc()))
+
+
+def run_ranks(fn, world: int, *args) -> list:
+    """``fn(rank, *args)`` in ``world`` ranks spawned with the ``spawn``
+    method (this process holds a CUDA context), joined in one gloo group:
+    they share the card, which NCCL refuses. CUDA tensors in ``args`` reach
+    the ranks through CUDA IPC; a rank takes the matrix out of its one-item
+    list, so the last reference to it dies with the rank's function and the
+    card's memory is released to this process. Returns the results in rank
+    order; raises if a rank failed or gave nothing within
+    ``DIST_TIMEOUT_S``; every rank is joined (or killed) before it
+    returns."""
+    import multiprocessing as mp
+    import queue
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    with scratch_dir() as tmp:
+        procs = [ctx.Process(target=_rank_main, args=(fn, r, world, f"{tmp}/store", args, out),
+                             daemon=True) for r in range(world)]
+        for p in procs:
+            p.start()
+        results, errors = {}, []
+        try:
+            for _ in range(world):
+                try:
+                    rank, status, value = out.get(timeout=DIST_TIMEOUT_S)
+                except queue.Empty:
+                    raise CheckFailed(f"{fn.__name__}: a rank gave no result within "
+                                      f"{DIST_TIMEOUT_S} s") from None
+                (results.__setitem__(rank, value) if status == "ok"
+                 else errors.append(f"rank {rank}: {value}"))
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    torch.cuda.ipc_collect()
+    check(not errors, "\n".join(errors))
+    return [results[r] for r in range(world)]
+
+
+def _result_arrays(res) -> dict:
+    return {key: getattr(res, key).cpu().numpy() for key in DIST_EXACT}
+
+
+def _dist_lamc_rank(rank, holder, mesh_shape, axes, block_axes, resample_axis, cfg_fields,
+                    plan_fields, warm_fields):
+    """One rank of a shared-card mesh: its own copy of its shard of ``a``, a
+    small warm-up, then the timed ``distributed_lamc``."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core import distributed, lamc
+    from repro_torch.device import fp32_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as _mesh
+    from repro_torch.runtime import shardings
+
+    fp32_policy()
+    mesh = _mesh.make_test_mesh(*mesh_shape, device="cuda", shared_card=True, axes=axes)
+    cfg = lamc.LAMCConfig(**cfg_fields)
+    plan = lamc.partition.PartitionPlan(**plan_fields)
+    places = distributed.input_placements(mesh, cfg, block_axes)
+    a = holder.pop()
+    local = shardings.local_shard(a, mesh, places).clone(memory_format=torch.contiguous_format)
+    full_shape = tuple(a.shape)
+    del a
+    x = DTensor.from_local(local, mesh, places, run_check=False, shape=full_shape,
+                           stride=(full_shape[1], 1))
+    # warm-up at a small size: library handles, collectives, the allocator
+    warm = lamc.partition.PartitionPlan(**warm_fields)
+    w = torch.randn((warm.n_rows, warm.n_cols), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(rank + 7))
+    distributed.distributed_lamc(mesh, w, lamc.LAMCConfig(4, 4, assign_impl="pallas"), warm,
+                                 block_axes, resample_axis)
+    del w
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    timer, stats = PhaseTimer(), {}
+    t0 = time.perf_counter()
+    res = distributed.distributed_lamc(mesh, x, cfg, plan, block_axes, resample_axis,
+                                       timer=timer, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(result=_result_arrays(res), wall_s=wall, phase_ms=timer.ms(),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                shard_gib=local.numel() * 4 / 2**30, shard_shape=list(local.shape),
+                launches=ops.launch_counts(), stats=stats)
+
+
+def _dist_launches(t_loc: int) -> dict:
+    from repro_torch.core import lamc
+
+    want = _stream_launches(t_loc)
+    want["kmeans_update"] = t_loc * lamc.LAMCConfig(**E2E_CONFIG).kmeans_iters
+    return want
+
+
+def _equal_results(got: dict, want) -> dict:
+    import numpy as np
+
+    return {key: bool(np.array_equal(got[key], want[key] if isinstance(want, dict)
+                                     else getattr(want, key).cpu().numpy()))
+            for key in DIST_EXACT}
+
+
+def phase_parity_dist_and_e2e(cell: dict, smi: str) -> dict:
+    """``parity_dist`` and ``e2e_dist``: ``distributed_lamc`` on a one-rank
+    NCCL mesh in this process (see the module doc)."""
+    import torch.distributed as dist
+
+    with scratch_dir() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            return _one_rank_phases(cell, smi)
+        finally:
+            dist.destroy_process_group()
+
+
+def _one_rank_phases(cell: dict, smi: str) -> dict:
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed, lamc
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as _mesh
+
+    mesh = _mesh.make_test_mesh(1, 1, device="cuda")
+    check(dist.get_backend() == "nccl", "the one-rank mesh is not on NCCL")
+    pc, plan, draws, cfg = _small_case()
+    card = distributed.distributed_lamc(mesh, pc.matrix, cfg, plan, draws=draws)
+    one = lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws)
+    host = lamc.lamc_cocluster(pc.matrix, cfg, plan=plan, draws=draws, device="cpu")
+    equal_card = _equal_results(_result_arrays(card), one)
+    equal_cpu = {side: bool(torch.equal(getattr(card, f"{side}_labels").cpu(),
+                                        getattr(host, f"{side}_labels")))
+                 for side in ("row", "col")}
+    emit("parity_dist", backend="nccl", mesh={"data": 1, "model": 1},
+         equal_to_card_lamc=equal_card, labels_equal_to_cpu=equal_cpu)
+    check(all(equal_card.values()), f"one-rank mesh against lamc_cocluster: {equal_card}")
+    check(all(equal_cpu.values()), f"one-rank mesh labels against the CPU: {equal_cpu}")
+
+    a, res = cell["matrix"], cell["result"]
+    cfg = cell["config"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    timer, stats = PhaseTimer(), {}
+    t0 = time.perf_counter()
+    out = distributed.distributed_lamc(mesh, a, cfg, res.plan, timer=timer, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    equal = _equal_results(_result_arrays(out), res)
+    scores = _scores(out.row_labels, out.col_labels, cell["row_truth"], cell["col_truth"])
+    emit("e2e_dist", cell="lamc_dense_131k_dist", nvidia_smi=smi, backend="nccl",
+         mesh={"data": 1, "model": 1}, plan=dataclasses.asdict(res.plan), wall_s=wall,
+         batch_wall_s=cell["wall_s"], phase_ms=timer.ms(),
+         peak_above_resident_gib=(torch.cuda.max_memory_allocated() - resident) / 2**30,
+         resident_gib=resident / 2**30, launches=counts, equal_to_lamc_cocluster=equal,
+         stats=stats, **scores)
+    check(all(equal.values()), f"e2e_dist differs from lamc_cocluster: {equal}")
+    check(counts == _dist_launches(res.plan.t_p), f"launch counts {counts}")
+    check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8, f"NMI: {scores}")
+    return counts
+
+
+def _batch_bits(a, plan, cfg, b_loc: int) -> dict:
+    """Which batched library call of the atom gives other bits on the first
+    ``b_loc`` blocks alone than inside the whole stack: the SVD's products,
+    QR and small SVD, at the dense cell's first resample."""
+    import torch
+    from repro_torch.core import partition
+    from repro_torch.kernels import ops
+
+    blocks, _, _ = partition.extract_blocks(a, plan, 0)
+    a_n, _, _ = ops.bipartite_normalize(blocks)
+    del blocks
+    r = cfg.atom_k.bit_length() + 1
+    omega = torch.randn((a_n.shape[0], a_n.shape[2], r), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
+    out = {}
+    y_all, y_part = a_n @ omega, a_n[:b_loc] @ omega[:b_loc]
+    out["torch.matmul (bmm, A @ omega)"] = bool(torch.equal(y_all[:b_loc], y_part))
+    q_all, q_part = torch.linalg.qr(y_all).Q, torch.linalg.qr(y_all[:b_loc]).Q
+    out["torch.linalg.qr"] = bool(torch.equal(q_all[:b_loc], q_part))
+    z_all, z_part = a_n.mT @ q_all, a_n[:b_loc].mT @ q_all[:b_loc]
+    out["torch.matmul (bmm, A.T @ Q)"] = bool(torch.equal(z_all[:b_loc], z_part))
+    p_all = q_all.mT @ a_n
+    s_all, s_part = torch.linalg.svd(p_all, full_matrices=False), \
+        torch.linalg.svd(p_all[:b_loc], full_matrices=False)
+    out["torch.linalg.svd"] = all(bool(torch.equal(x[:b_loc], y)) for x, y in zip(s_all, s_part))
+    del a_n
+    torch.cuda.empty_cache()
+    return {name: same for name, same in out.items()}
+
+
+def phase_e2e_dist_shared4(cell: dict, smi: str) -> dict:
+    """``e2e_dist_shared4``: the dense cell on four ranks sharing the card
+    (see the module doc)."""
+    import torch
+    from repro_torch.core import lamc
+    from repro_torch.core.metrics import nmi
+
+    a, res, cfg = cell["matrix"], cell["result"], cell["config"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    warm = lamc.partition.PartitionPlan(2048, 1024, 4, 2, 512, 512, 1)
+    ranks = run_ranks(_dist_lamc_rank, 4, [a], (2, 2), ("data", "model"), ("data", "model"),
+                      None, dataclasses.asdict(cfg), dataclasses.asdict(res.plan),
+                      dataclasses.asdict(warm))
+    phase_wall = time.perf_counter() - t0
+    got = ranks[0]["result"]
+    equal = _equal_results(got, res)
+    same_on_ranks = all(_equal_results(r["result"], got) == dict.fromkeys(DIST_EXACT, True)
+                        for r in ranks)
+    nmi_vs_one = {side: nmi(got[f"{side}_labels"], getattr(res, f"{side}_labels").cpu().numpy())
+                  for side in ("row", "col")}
+    bits = None
+    if not all(equal.values()):
+        bits = _batch_bits(a, res.plan, cfg, 32)
+    scores = _scores(torch.from_numpy(got["row_labels"]), torch.from_numpy(got["col_labels"]),
+                     cell["row_truth"], cell["col_truth"])
+    emit("e2e_dist_shared4", cell="lamc_dense_131k_dist_shared4", nvidia_smi=smi,
+         backend="gloo (four ranks share one card, which NCCL refuses; collectives staged "
+                 "through host memory, kernels on the card)",
+         mesh={"data": 2, "model": 2}, b_loc=res.plan.blocks_per_resample // 4,
+         phase_wall_s=phase_wall,
+         ranks=[{key: r[key] for key in ("wall_s", "phase_ms", "peak_gib", "shard_gib",
+                                         "shard_shape", "launches", "stats")} for r in ranks],
+         scatter_bytes=sum(r["stats"].get("scatter_bytes_sent", 0) for r in ranks),
+         equal_to_one_process=equal, same_on_every_rank=same_on_ranks,
+         nmi_vs_one_process=nmi_vs_one, bits_at_b_loc_32_vs_128=bits, **scores)
+    for r in ranks:
+        check(r["launches"] == _dist_launches(1), f"rank launch counts {r['launches']}")
+    check(same_on_ranks, "the ranks' results differ")
+    check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8, f"NMI: {scores}")
+    if not all(equal.values()):
+        # allowed only where a batched library call gives other bits at 32
+        # blocks than at 128; the labels must then still agree closely
+        check(bits is not None and not all(bits.values()),
+              f"shared4 differs from the one-process run with no batched call to blame: {equal}")
+        check(min(nmi_vs_one.values()) >= 0.99, f"shared4 against one process: {nmi_vs_one}")
+    return ranks[0]["launches"]
+
+
+def phase_e2e_dist_pods(cell: dict, smi: str) -> dict:
+    """``e2e_dist_pods``: the dense cell at t_p = 2, one resample on each of
+    two ranks sharing the card (see the module doc)."""
+    import torch
+    from repro_torch.core import lamc
+    from repro_torch.core.metrics import nmi
+
+    a, res, cfg = cell["matrix"], cell["result"], cell["config"]
+    plan = dataclasses.replace(res.plan, t_p=2)
+    one = lamc.lamc_cocluster(a, cfg, plan=plan)
+    one_arrays = _result_arrays(one)
+    del one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    warm = lamc.partition.PartitionPlan(2048, 1024, 2, 1, 1024, 1024, 2)
+    ranks = run_ranks(_dist_lamc_rank, 2, [a], (2, 1), ("pod", "data"), ("data",), "pod",
+                      dataclasses.asdict(cfg), dataclasses.asdict(plan),
+                      dataclasses.asdict(warm))
+    phase_wall = time.perf_counter() - t0
+    got = ranks[0]["result"]
+    equal = _equal_results(got, one_arrays)
+    nmi_vs_one = {side: nmi(got[f"{side}_labels"], one_arrays[f"{side}_labels"])
+                  for side in ("row", "col")}
+    scores = _scores(torch.from_numpy(got["row_labels"]), torch.from_numpy(got["col_labels"]),
+                     cell["row_truth"], cell["col_truth"])
+    emit("e2e_dist_pods", cell="lamc_dense_131k_dist_pods", nvidia_smi=smi,
+         backend="gloo (two ranks share one card)", mesh={"pod": 2, "data": 1},
+         resample_axis="pod", t_p=2, phase_wall_s=phase_wall,
+         ranks=[{key: r[key] for key in ("wall_s", "phase_ms", "peak_gib", "shard_gib",
+                                         "launches", "stats")} for r in ranks],
+         equal_to_one_process=equal, nmi_vs_one_process=nmi_vs_one, **scores)
+    for r in ranks:
+        check(r["launches"] == _dist_launches(1), f"rank launch counts {r['launches']}")
+        check(_equal_results(r["result"], got) == dict.fromkeys(DIST_EXACT, True),
+              "the ranks' results differ")
+    check(all(equal.values()), f"pods against the one-process t_p = 2 fit: {equal}")
+    check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8, f"NMI: {scores}")
+    return ranks[0]["launches"]
+
+
+def phase_serve_sharded(cell: dict, smi: str) -> dict:
+    """``serve_sharded``: the dense cell's model in a service whose tables
+    are cluster-sharded over four slices of the card (see the module doc)."""
+    import numpy as np
+    import torch
+    from repro_torch import streaming
+    from repro_torch.data import to_bcoo
+    from repro_torch.kernels import ops
+    from repro_torch.streaming import assign
+
+    a = cell["matrix"]
+    model = streaming.model_from_result(cell["result"])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = (a[:1024] + torch.randn((1024, a.shape[1]), generator=gen, device="cuda")).cpu().numpy()
+    cols = a[:, :64].T.contiguous().cpu().numpy()
+    traffic = [(rows[:b], "rows", k) for b in (1, 64, 1024) for k in (1, 4)] + \
+              [(cols, "cols", k) for k in (1, 4)]
+    cfg = streaming.ServeConfig(batch=1024, replicas=1)
+    answers, p50 = {}, {}
+    counts = None
+    for name, devices in (("unsharded", ["cuda:0"]), ("sharded", ["cuda:0"] * SERVE_SLICES)):
+        with streaming.AssignService(model, config=cfg, devices=devices) as svc:
+            for req in traffic:                                   # warm every scorer
+                svc.submit(*req).result(timeout=60)
+            ops.reset_launch_counts()
+            answers[name] = [svc.submit(*req).result(timeout=60) for req in traffic]
+            if name == "sharded":
+                counts = ops.launch_counts()
+            coo = assign._gather_anchor(to_bcoo(rows[:64], "cuda"), model.anchor_cols)
+            answers[name] += [svc._engine.scorer("rows", k)(coo) for k in (1, 4)]
+            lat = {}
+            for b in (1, 64, 1024):
+                times = []
+                for _ in range(SERVE_P50_REQUESTS):
+                    t0 = time.perf_counter()
+                    svc.submit(rows[:b]).result(timeout=60)
+                    times.append((time.perf_counter() - t0) * 1e6)
+                lat[b] = float(np.percentile(times, 50))
+            p50[name] = lat
+            slices = [len(svc._engine.slices[axis]) for axis in ("rows", "cols")]
+    equal = []
+    for x, y in zip(answers["unsharded"], answers["sharded"]):
+        if isinstance(x, streaming.ServeResult):
+            equal.append(bool(x.ok and y.ok and np.array_equal(x.labels, y.labels)
+                              and np.array_equal(x.scores.view(np.int32),
+                                                 y.scores.view(np.int32))))
+        else:
+            equal.append(all(bool(torch.equal(u, v)) for u, v in zip(x, y)))
+    emit("serve_sharded", cell="lamc_dense_131k_serve_sharded", nvidia_smi=smi,
+         slices=SERVE_SLICES, slices_per_axis=slices,
+         requests=[dict(rows=len(r[0]), axis=r[1], k=r[2]) for r in traffic] + ["coo k=1",
+                                                                                "coo k=4"],
+         answers_equal=equal, p50_us=p50, launches=counts)
+    check(slices == [SERVE_SLICES, SERVE_SLICES], f"tables not sharded: {slices}")
+    check(all(equal), f"sharded answers differ from the unsharded engine's: {equal}")
+    check(counts["cosine_assign"] > 0 and counts["cosine_topk"] > 0,
+          f"the sharded engine launched no scorer: {counts}")
+    return counts
+
+
+def _elastic_rank(rank, holder, ckpt_dir, cfg_fields, first_chunk):
+    """Restore the FitState onto a 4-rank ``data`` mesh (each rank its
+    shards), continue the fit over the rest of ``a``'s chunks."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+    from repro_torch import checkpoint, streaming
+    from repro_torch.device import fp32_policy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as _mesh
+    from repro_torch.runtime import fault_tolerance, shardings
+
+    fp32_policy()
+    _mesh.ensure_process_group("cuda", shared_card=True)
+    mesh = init_device_mesh("cuda", (4,), mesh_dim_names=("data",))
+    step = checkpoint.latest_step(ckpt_dir)
+    template, _ = checkpoint.restore_tree(ckpt_dir, step)
+    specs = shardings.stream_state_specs(template, mesh)
+    tree, extra = fault_tolerance.elastic_restore(ckpt_dir, step, template, mesh, specs)
+    sharded = {name: list(leaf.to_local().shape) for name, leaf in tree.items()
+               if isinstance(leaf, DTensor) and any(p.is_shard() for p in leaf.placements)}
+    cfg = streaming.StreamConfig(**cfg_fields)
+    a = holder.pop()
+    ops.reset_launch_counts()
+    fitter = streaming.StreamingCocluster.from_state_tree(
+        cfg, tree, chunk_format=extra["chunk_format"], chunk_dtype=extra["chunk_dtype"])
+    for i, chunk in enumerate(streaming.iter_row_chunks(a, STREAM_CHUNK_ROWS)):
+        if i >= first_chunk:
+            fitter.partial_fit(chunk)
+    model, _ = fitter.finalize()
+    torch.cuda.synchronize()
+    return dict(model={f: getattr(model, f).cpu().numpy() for f in model._fields},
+                sharded_local_shapes=sharded, step=step, launches=ops.launch_counts())
+
+
+def phase_elastic(cell: dict, seed: int, smi: str) -> dict:
+    """``elastic``: the ``lamc_stream_131k`` fit checkpointed after 4
+    chunks, restored onto four ranks sharing the card and continued (see the
+    module doc)."""
+    import numpy as np
+    from repro_torch import streaming
+
+    a, want = cell["matrix"], cell["stream_model"]
+    cfg = _stream_config(seed)
+    fitter = streaming.StreamingCocluster(cfg)
+    for i, chunk in enumerate(streaming.iter_row_chunks(a, STREAM_CHUNK_ROWS)):
+        if i == ELASTIC_AFTER:
+            break
+        fitter.partial_fit(chunk)
+    with scratch_dir() as tmp:
+        streaming.save_fit_state(f"{tmp}/fit", fitter)
+        del fitter
+        t0 = time.perf_counter()
+        ranks = run_ranks(_elastic_rank, 4, [a], f"{tmp}/fit", dataclasses.asdict(cfg),
+                          ELASTIC_AFTER)
+        wall = time.perf_counter() - t0
+    equal = [{f: bool(np.array_equal(r["model"][f], getattr(want, f).cpu().numpy()))
+              for f in want._fields} for r in ranks]
+    emit("elastic", cell="lamc_stream_131k_elastic", nvidia_smi=smi,
+         backend="gloo (four ranks share one card)", restored_step=ranks[0]["step"],
+         sharded_local_shapes=ranks[0]["sharded_local_shapes"], phase_wall_s=wall,
+         launches=[r["launches"] for r in ranks],
+         model_equal_on_every_rank=[all(e.values()) for e in equal])
+    check(ranks[0]["step"] == ELASTIC_AFTER, f"restored step {ranks[0]['step']}")
+    check(ranks[0]["sharded_local_shapes"], "no leaf was sharded over the mesh")
+    check(all(all(e.values()) for e in equal), f"elastic models differ: {equal}")
+    want_counts = _stream_launches(E2E_ROWS // STREAM_CHUNK_ROWS - ELASTIC_AFTER)
+    for r in ranks:
+        check(r["launches"] == want_counts, f"elastic launch counts {r['launches']}")
+    return ranks[0]["launches"]
 
 
 def phase_e2e_stream_ooc(seed: int, smi: str) -> dict:
@@ -2142,6 +2632,11 @@ def main() -> int:
         baseline_counts = phase_baselines(dense_cell)
         phase_parity_fit()
         stream_counts = phase_e2e_stream(dense_cell, args.seed, smi)
+        dist_counts = phase_parity_dist_and_e2e(dense_cell, smi)
+        shared4_counts = phase_e2e_dist_shared4(dense_cell, smi)
+        pods_counts = phase_e2e_dist_pods(dense_cell, smi)
+        serve_sharded_counts = phase_serve_sharded(dense_cell, smi)
+        elastic_counts = phase_elastic(dense_cell, args.seed, smi)
         del dense_cell
         torch.cuda.empty_cache()
         ooc_counts = phase_e2e_stream_ooc(args.seed, smi)
@@ -2167,7 +2662,11 @@ def main() -> int:
              "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts,
              "lamc_dense_131k_nmtf": nmtf_counts, "baselines_131k": baseline_counts,
              "examples": example_counts, "lamc_stream_131k": stream_counts,
-             "lamc_stream_1.5m_ooc": ooc_counts}
+             "lamc_stream_1.5m_ooc": ooc_counts, "lamc_dense_131k_dist": dist_counts,
+             "lamc_dense_131k_dist_shared4": shared4_counts,
+             "lamc_dense_131k_dist_pods": pods_counts,
+             "lamc_dense_131k_serve_sharded": serve_sharded_counts,
+             "lamc_stream_131k_elastic": elastic_counts}
     summary = []
     for name, row in rows.items():
         # launches: per run of the first cell that launches the kernel

@@ -30,6 +30,7 @@ truncation or missing payload.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import shutil
@@ -273,21 +274,36 @@ def _to_tensor(arr: np.ndarray, bf16: bool) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like, device: str | torch.device = "cuda"):
+def restore(ckpt_dir: str, step: int, like, device: str | torch.device = "cuda", *,
+            mesh=None, placements=None):
     """Restore checkpoint ``step`` into the structure of ``like``.
 
     ``like`` supplies the tree structure and expected shapes; its tensor
     and array leaves come back as tensors on ``device``, its Python
     ``bool``/``int``/``float`` leaves as Python scalars of the same type.
-    Every leaf is verified against the manifest's content hash. Returns
-    ``(tree, extra_meta)``.
+    ``placements`` (one DTensor placement tuple for every leaf, as a list in
+    leaf order, or one tuple for all) with a ``DeviceMesh`` ``mesh`` places
+    each array leaf on the mesh: it comes back as a DTensor holding only
+    this rank's shard (the reference's ``shardings``, for a restore onto a
+    mesh of another size than the writer's). Every leaf is verified against
+    the manifest's content hash. Returns ``(tree, extra_meta)``.
     """
     dev = resolve_device(device)
     path = _step_dir(ckpt_dir, step)
     meta = read_manifest(ckpt_dir, step)
     data = _open_arrays(path)
+    if placements is not None:
+        from ..runtime.shardings import distribute
+
+        n_leaves = len(_flatten_with_names(like)[0])
+        if not isinstance(placements, list):
+            placements = [placements] * n_leaves
+        if len(placements) != n_leaves:
+            raise ValueError(f"{len(placements)} placements for {n_leaves} leaves")
+    position = itertools.count()
 
     def load(name, leaf):
+        i = next(position)
         arr = _load_leaf(data, meta, name, path)
         want_shape = tuple(np.shape(leaf))
         if tuple(arr.shape) != want_shape:
@@ -295,7 +311,10 @@ def restore(ckpt_dir: str, step: int, like, device: str | torch.device = "cuda")
                 f"shape mismatch for {name}: ckpt {arr.shape} vs model {want_shape}")
         if isinstance(leaf, (bool, int, float)):
             return type(leaf)(arr[()])
-        return _to_tensor(arr, meta["leaves"][name]["dtype"] == "bfloat16").to(dev)
+        t = _to_tensor(arr, meta["leaves"][name]["dtype"] == "bfloat16")
+        if placements is not None:
+            return distribute(t, mesh, placements[i], device=dev)
+        return t.to(dev)
 
     return _rebuild(like, load), meta.get("extra")
 

@@ -50,25 +50,45 @@ def take_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx[:, :, None].expand(-1, -1, x.shape[2]))
 
 
+def _draw(p: torch.Tensor, generator: torch.Generator, stack) -> torch.Tensor:
+    """One index per block, drawn proportional to ``p (B, P)``.
+
+    ``stack=(offset, total)``: the ``B`` blocks are blocks ``offset ..
+    offset + B`` of a stack of ``total``, and the draw is made for the whole
+    stack (the other blocks' rows uniform) and this slice kept. A block's
+    draw depends only on its own row and the generator's numbers for that
+    row (``multinomial`` takes the argmax of ``p / Exp(1)`` noise drawn for
+    the whole tensor), so it equals the draw of a run over the whole stack.
+    """
+    if stack is None:
+        return torch.multinomial(p, 1, generator=generator)
+    offset, total = stack
+    full = torch.ones((total, p.shape[1]), dtype=p.dtype, device=p.device)
+    full[offset:offset + p.shape[0]] = p
+    return torch.multinomial(full, 1, generator=generator)[offset:offset + p.shape[0]]
+
+
 def kmeanspp_init(x: torch.Tensor, k: int, generator: torch.Generator,
-                  weights: torch.Tensor | None = None) -> torch.Tensor:
+                  weights: torch.Tensor | None = None, *, stack=None) -> torch.Tensor:
     """k-means++ seeding per block, ``(B, K, D)``.
 
     With ``weights``, seeds are drawn proportional to ``w * d^2``, so
-    zero-weight points are never selected.
+    zero-weight points are never selected. ``stack=(offset, total)`` draws
+    as for a whole stack of ``total`` blocks of which these are a slice
+    (:func:`_draw`).
     """
     b, p, d = x.shape
     w = torch.ones((b, p), dtype=x.dtype, device=x.device) if weights is None \
         else weights
     cents = torch.zeros((b, k, d), dtype=x.dtype, device=x.device)
-    first = torch.multinomial(w, 1, generator=generator)
+    first = _draw(w, generator, stack)
     cents[:, 0] = take_points(x, first)[:, 0]
     x2 = torch.sum(x * x, dim=-1, keepdim=True)
     for i in range(1, k):
         c = cents[:, :i]
         d2 = x2 - 2.0 * (x @ c.mT) + torch.sum(c * c, dim=-1)[:, None, :]
         dmin = torch.amin(d2, dim=-1).clamp_min(1e-12) * w
-        cents[:, i] = take_points(x, torch.multinomial(dmin, 1, generator=generator))[:, 0]
+        cents[:, i] = take_points(x, _draw(dmin, generator, stack))[:, 0]
     return cents
 
 
@@ -87,13 +107,16 @@ def kmeans(
     init=None,
     generator: torch.Generator | None = None,
     device: str | torch.device = "cuda",
+    *,
+    stack=None,
 ) -> KMeansResult:
     """Lloyd's algorithm on ``x (B, P, D)``: ``n_iter`` steps from k-means++.
 
     ``weights (B, P)`` makes seeding and updates weighted. ``init (B, K, D)``
     replaces the k-means++ seeding (the tests inject the reference's seeds
-    here); otherwise seeds are drawn from ``generator`` (default: seeded 0).
-    Inputs are moved to ``device``.
+    here); otherwise seeds are drawn from ``generator`` (default: seeded 0),
+    with ``stack=(offset, total)`` as for the whole stack these blocks are a
+    slice of (:func:`kmeanspp_init`). Inputs are moved to ``device``.
     """
     if assign_impl not in ASSIGN_IMPLS:
         raise ValueError(f"assign_impl must be one of {ASSIGN_IMPLS}, got "
@@ -107,7 +130,7 @@ def kmeans(
         cents = torch.as_tensor(init, dtype=torch.float32, device=dev).clone()
     else:
         gen = generator if generator is not None else seeded_generator(dev, 0)
-        cents = kmeanspp_init(x, k, gen, weights=w)
+        cents = kmeanspp_init(x, k, gen, weights=w, stack=stack)
 
     if assign_impl == "pallas":
         for _ in range(n_iter):

@@ -152,21 +152,22 @@ def _operator_index(given, n_points: int, groups: int, size: int,
 
 
 def _atom(blocks, cfg: LAMCConfig, gen: torch.Generator, dev: torch.device,
-          omega, seeds, nmtf_init, timer):
+          omega, seeds, nmtf_init, timer, stack=None):
     """The configured atom on the block stack (the reference's ``_atom_fn``):
     ``(row_labels (B, phi), col_labels (B, psi))``. NMTF shifts the stack in
-    place: it is this resample's own."""
+    place: it is this resample's own. ``stack=(offset, total)``: the blocks
+    are a slice of a resample's stack, drawn for as the whole stack."""
     if cfg.atom == "nmtf":
         with timer("nmtf"):
             res = _nmtf(blocks, cfg.atom_k, cfg.atom_d, n_iter=cfg.nmtf_iters,
                        init=nmtf_init, generator=gen, overwrite_a=True,
-                       device=dev, timer=timer)
+                       device=dev, timer=timer, stack=stack)
     else:
         res = spectral.scc(
             blocks, cfg.atom_k, cfg.atom_d, svd_iters=cfg.svd_iters,
             kmeans_iters=cfg.kmeans_iters, assign_impl=cfg.assign_impl,
             svd_method=cfg.svd_method, qr_method=cfg.qr_method, omega=omega,
-            seeds=seeds, generator=gen, device=dev, timer=timer)
+            seeds=seeds, generator=gen, device=dev, timer=timer, stack=stack)
     return res.row_labels, res.col_labels
 
 

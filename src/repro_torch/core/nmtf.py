@@ -57,7 +57,8 @@ def _squared_error(a: torch.Tensor, f: torch.Tensor, s: torch.Tensor,
 
 def nmtf(a, k: int, d: int | None = None, n_iter: int = 64, *, init=None,
          generator: torch.Generator | None = None, overwrite_a: bool = False,
-         device: str | torch.device = "cuda", timer=no_timer) -> NMTFResult:
+         device: str | torch.device = "cuda", timer=no_timer,
+         stack=None) -> NMTFResult:
     """Orthogonal tri-factorization of every block of ``a (B, M, N)`` with
     multiplicative updates; a 2-D ``a`` is a stack of one.
 
@@ -66,7 +67,9 @@ def nmtf(a, k: int, d: int | None = None, n_iter: int = 64, *, init=None,
     steps each, as in the reference): one-hot labels plus 0.2. ``init =
     (row_seeds (B, k), col_seeds (B, d))`` replaces the two k-means++
     seedings by point indices (rows of the block, columns of the block);
-    otherwise they are drawn from ``generator``. ``overwrite_a`` lets a
+    otherwise they are drawn from ``generator`` (with ``stack=(offset,
+    total)`` as for the whole stack these blocks are a slice of, as
+    ``kmeans.kmeans`` takes it). ``overwrite_a`` lets a
     caller that owns the float32 stack on ``device`` have it shifted in
     place instead of copied. ``timer(name)`` returns a context manager
     around each phase (``"nmtf_init"``: the shift, both k-means and ``S``;
@@ -89,7 +92,7 @@ def nmtf(a, k: int, d: int | None = None, n_iter: int = 64, *, init=None,
         start = None if seeds is None else _kmeans.take_points(
             x, torch.as_tensor(seeds, device=dev).reshape(b, kk))
         return _kmeans.kmeans(x, kk, n_iter=_INIT_KMEANS_ITERS, init=start,
-                              generator=gen, device=dev).labels
+                              generator=gen, device=dev, stack=stack).labels
 
     with timer("nmtf_init"):
         shift = torch.amin(a, dim=(1, 2), keepdim=True).clamp_max(0.0)

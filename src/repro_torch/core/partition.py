@@ -173,7 +173,8 @@ def extract_blocks(a: torch.Tensor, plan: PartitionPlan, resample: int, *,
 
 def extract_blocks_sparse(a: torch.Tensor, plan: PartitionPlan, resample: int, *,
                           row_idx: torch.Tensor | None = None,
-                          col_idx: torch.Tensor | None = None):
+                          col_idx: torch.Tensor | None = None,
+                          block_range: tuple[int, int] | None = None):
     """:func:`extract_blocks` for a coalesced COO matrix, O(nnz); the dense
     ``M x N`` matrix never exists.
 
@@ -182,6 +183,8 @@ def extract_blocks_sparse(a: torch.Tensor, plan: PartitionPlan, resample: int, *
     stack; entries whose row or column misses this resample's grid are
     dropped. Bit-exact against :func:`extract_blocks` on the densified
     matrix: each block cell receives one stored value or stays zero.
+    ``block_range=(first, count)`` builds only blocks ``first .. first +
+    count`` of the stack (a distributed rank's share).
     """
     from . import sparse as _sparse
 
@@ -197,7 +200,11 @@ def extract_blocks_sparse(a: torch.Tensor, plan: PartitionPlan, resample: int, *
     pr, pc, vals = pr[valid], pc[valid], vals[valid]
     bid = torch.div(pr, plan.phi, rounding_mode="floor") * plan.n \
         + torch.div(pc, plan.psi, rounding_mode="floor")
-    blocks = torch.zeros((plan.m * plan.n, plan.phi, plan.psi), dtype=vals.dtype,
+    first, count = (0, plan.m * plan.n) if block_range is None else block_range
+    if block_range is not None:
+        keep = (bid >= first) & (bid < first + count)
+        bid, pr, pc, vals = bid[keep] - first, pr[keep], pc[keep], vals[keep]
+    blocks = torch.zeros((count, plan.phi, plan.psi), dtype=vals.dtype,
                          device=vals.device)
     blocks[bid, pr % plan.phi, pc % plan.psi] = vals
     return blocks, row_idx, col_idx

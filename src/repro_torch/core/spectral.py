@@ -101,7 +101,7 @@ def _qr_orth(y: torch.Tensor) -> torch.Tensor:
 
 def randomized_svd(a, rank: int, n_iter: int = 4, qr_method: str = "qr",
                    omega=None, generator: torch.Generator | None = None,
-                   device: str | torch.device = "cuda"):
+                   device: str | torch.device = "cuda", *, stack=None):
     """Top-``rank`` singular triplets of each block by subspace iteration.
 
     ``n_iter`` stabilized power iterations, then an exact SVD of the small
@@ -109,6 +109,9 @@ def randomized_svd(a, rank: int, n_iter: int = 4, qr_method: str = "qr",
     Vt (B, r, N))``. ``omega (B, N, r)`` replaces the Gaussian sketch drawn
     from ``generator`` (the tests inject the reference's sketch).
     ``qr_method`` is ``"qr"`` (Householder) or ``"cholesky"`` (CholeskyQR).
+    ``stack=(offset, total)``: the blocks are blocks ``offset .. offset + B``
+    of a stack of ``total``; the sketch is drawn for the whole stack and this
+    slice kept, so each block gets the sketch of a run over the whole stack.
     """
     if qr_method not in QR_METHODS:
         raise ValueError(f"qr_method must be one of {QR_METHODS}, got {qr_method!r}")
@@ -123,7 +126,9 @@ def randomized_svd(a, rank: int, n_iter: int = 4, qr_method: str = "qr",
     orth = _cholesky_orth if qr_method == "cholesky" else _qr_orth
     if omega is None:
         gen = generator if generator is not None else seeded_generator(dev, 0)
-        omega = torch.randn((b, n, r), generator=gen, dtype=a.dtype, device=dev)
+        offset, total = (0, b) if stack is None else stack
+        omega = torch.randn((total, n, r), generator=gen, dtype=a.dtype,
+                            device=dev)[offset:offset + b]
     else:
         omega = torch.as_tensor(omega, dtype=a.dtype, device=dev)
     q = orth(a @ omega)                                  # (B, M, r)
@@ -205,6 +210,7 @@ def scc(
     generator: torch.Generator | None = None,
     device: str | torch.device = "cuda",
     timer=no_timer,
+    stack=None,
 ) -> SCCResult:
     """Spectral co-clustering of every block of ``a (B, M, N)``, or of one
     sparse operand (results with ``B = 1``).
@@ -215,7 +221,9 @@ def scc(
     replaces the SVD sketch and ``seeds`` the k-means++ draws, as point
     indices ``(B, k)`` into the embedding (into ``Z``, or a pair ``(row,
     col)`` when the cluster counts differ); the rest is drawn from
-    ``generator``.
+    ``generator``; ``stack=(offset, total)`` draws them as for the whole
+    stack of ``total`` blocks these are a slice of (the distributed driver's
+    ranks), so each block gets the draws of a run over the whole stack.
     ``timer(name)`` returns a context manager around each phase
     (``"normalize"``, ``"svd"``, ``"kmeans"``).
     """
@@ -243,7 +251,7 @@ def scc(
         else:
             u, _s, vt = randomized_svd(a_n, rank=l + 1, n_iter=svd_iters,
                                        qr_method=qr_method, omega=omega,
-                                       generator=gen, device=dev)
+                                       generator=gen, device=dev, stack=stack)
         del a_n
         # Drop the leading (trivial) singular pair: u_2..u_{l+1}, v_2..v_{l+1}.
         row_embed = d1_isqrt[..., None] * u[..., 1 : l + 1]        # (B, M, l)
@@ -254,7 +262,7 @@ def scc(
             init = None if idx is None else _kmeans.take_points(x, idx)
             return _kmeans.kmeans(x, kk, n_iter=kmeans_iters,
                                   assign_impl=assign_impl, init=init,
-                                  generator=gen, device=dev)
+                                  generator=gen, device=dev, stack=stack)
 
         if k == d:
             res = km(torch.cat([row_embed, col_embed], dim=1), k, seeds)

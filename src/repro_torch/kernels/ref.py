@@ -54,8 +54,16 @@ def kmeans_update_ref(x: torch.Tensor, centroids: torch.Tensor,
 def _cosine_scores(x: torch.Tensor, signatures: torch.Tensor,
                    k_valid: int | None) -> torch.Tensor:
     """``x @ signatures.T`` in float32, columns at and past ``k_valid`` set
-    to -inf (the reference kernels' mask of padded signature rows)."""
-    xs = x.to(torch.float32) @ signatures.to(torch.float32).T       # (P, K)
+    to -inf (the reference kernels' mask of padded signature rows).
+
+    Each signature's scores are their own ``(1, q) @ (q, P)`` product of a
+    batch over signatures, so a score's bits do not depend on how many
+    signatures are scored with it (one ``(P, q) @ (q, K)`` product changes
+    them with K on the CPU). The kernels keep the same property (one fmaf
+    chain per score), which is what lets a cluster-sharded service give the
+    unsharded answers bit for bit."""
+    s = signatures.to(torch.float32)
+    xs = torch.matmul(s[:, None, :], x.to(torch.float32).T[None])[:, 0].T   # (P, K)
     if k_valid is not None and k_valid < xs.shape[1]:
         xs[:, k_valid:] = -torch.inf
     return xs

@@ -1,8 +1,6 @@
-"""Runtime support: the recovery loop of the out-of-core fit.
+"""Runtime support: the recovery loop of the out-of-core fit, its elastic
+restore onto a device mesh, and the sharding policy of the LAMC state."""
 
-The reference's ``runtime.shardings`` (device meshes) is not ported yet.
-"""
+from . import fault_tolerance, shardings
 
-from . import fault_tolerance
-
-__all__ = ["fault_tolerance"]
+__all__ = ["fault_tolerance", "shardings"]

@@ -16,10 +16,10 @@ reference's semantics, event names and counter names:
     ``SimulatedFailure`` inside the step callable), so tests and drivers
     exercise the real recovery path;
   * ``run_with_recovery`` — the retry loop: restore from this run's latest
-    save, bounded retries, monotonic progress.
-
-The reference's ``elastic_restore`` (a checkpoint placed onto a device mesh
-of another size) needs the port's ``runtime/shardings.py`` and is not here.
+    save, bounded retries, monotonic progress;
+  * ``elastic_restore`` — a checkpoint placed onto a device mesh of another
+    size than the one that wrote it, each rank holding only its shards
+    (placements from ``runtime.shardings``).
 
 LAMC's own resilience is statistical: ``probability.resamples_for_failures``
 turns an expected number of failed blocks into extra resamples, a fault
@@ -32,12 +32,14 @@ import dataclasses
 import logging
 from typing import Any, Callable
 
+import torch
+
 from .. import obs
 from ..checkpoint import checkpoint as ckpt
 
 logger = logging.getLogger("repro_torch.fault_tolerance")
 
-__all__ = ["SimulatedFailure", "FailureInjector", "run_with_recovery"]
+__all__ = ["SimulatedFailure", "FailureInjector", "run_with_recovery", "elastic_restore"]
 
 
 class SimulatedFailure(RuntimeError):
@@ -162,3 +164,39 @@ def run_with_recovery(
     if step > step0:
         _save(step, state)  # a no-op unless progress followed the last save
     return state, {"failures": failures, "final_step": step}
+
+
+def _flat_placements(like, specs) -> list:
+    """``specs`` (placement tuples in ``like``'s structure) as a list in the
+    checkpoint's leaf order."""
+    out: list = []
+
+    def walk(leaf, spec):
+        if leaf is None:
+            return
+        if isinstance(leaf, dict):
+            for key in sorted(leaf):
+                walk(leaf[key], spec[key])
+        elif isinstance(leaf, tuple) and hasattr(leaf, "_fields"):
+            for field in leaf._fields:
+                walk(getattr(leaf, field), getattr(spec, field))
+        elif isinstance(leaf, (list, tuple)):
+            for a, b in zip(leaf, spec):
+                walk(a, b)
+        else:
+            out.append(spec)
+
+    walk(like, specs)
+    return out
+
+
+def elastic_restore(ckpt_dir: str, step: int, like, mesh, specs,
+                    device: str | torch.device = "cuda"):
+    """Restore a checkpoint onto the ``DeviceMesh`` ``mesh`` with ``specs``
+    (placements in ``like``'s structure, e.g.
+    ``shardings.stream_state_specs``): array leaves come back as DTensors,
+    each rank holding only its shards on ``device``. The mesh may differ in
+    size from the one that wrote the checkpoint (elastic scaling). Returns
+    ``(tree, extra_meta)``."""
+    return ckpt.restore(ckpt_dir, step, like, device, mesh=mesh,
+                        placements=_flat_placements(like, specs))

@@ -519,7 +519,18 @@ class StreamingCocluster:
                         draws: StreamDraws | None = None,
                         device: str | torch.device = "cuda"
                         ) -> StreamingCocluster:
-        """Rebuild a fitter from a ``state_tree`` of host arrays."""
+        """Rebuild a fitter from a ``state_tree`` of host arrays, or of
+        DTensors (``fault_tolerance.elastic_restore``), which are gathered
+        whole here: the fitter's state lives on every rank."""
+        from ..runtime.shardings import full_tensor
+
+        def host(leaf):
+            if isinstance(leaf, dict):
+                return {k: host(v) for k, v in leaf.items()}
+            leaf = full_tensor(leaf)
+            return leaf.cpu().numpy() if isinstance(leaf, torch.Tensor) else leaf
+
+        tree = host(tree)
         self = cls(cfg, draws=draws, device=device)
         sc = np.asarray(tree["scalars"]).astype(np.int64)
         self._n_cols = int(sc[0])

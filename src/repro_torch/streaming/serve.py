@@ -27,10 +27,18 @@ reference once per batch, so every batch (and therefore every response)
 is attributable to exactly one version; an engine is immutable after
 construction, so there is no torn state to read.
 
+Cluster-sharded tables (``ServeConfig.shard`` / ``mesh_axis``): with more
+than one slice (``devices``: the visible cards by default, or any list, so
+one card can hold several slices) each signature table is split by cluster
+as ``runtime.shardings.serve_model_specs`` places it, every slice scores its
+clusters with the cosine kernels, and the per-slice (score, global index)
+results are merged in slice order, ties to the lower index: the answers
+equal the unsharded engine's bit for bit (a score does not depend on how
+many clusters are scored with it). A table whose cluster count does not
+divide the slice count is replicated and scored whole.
+
 Reason codes, metric names and the swap protocol are the reference
-package's. Its cluster-sharded tables across several devices (the
-reference's ``ServeConfig.shard`` and ``mesh_axis``) are not ported: one
-card serves the whole model.
+package's.
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ import torch
 
 from .. import obs as _obs
 from ..device import resolve_device
-from .assign import _assign, _assign_topk
+from ..runtime.shardings import serve_model_shardings
+from .assign import AssignResult, TopKAssignResult, _assign, _assign_topk
 from .model import CoclusterModel
 
 __all__ = ["AssignService", "ServeConfig", "ServeResult", "Ticket",
@@ -133,6 +142,8 @@ class ServeConfig:
     batch: int = 64               # fixed batch rows; also max request size
     replicas: int = 1             # scoring worker threads
     max_queue_rows: int = 4096    # admission budget; beyond it -> queue_full
+    shard: bool = True            # cluster-shard tables when >1 slice
+    mesh_axis: str = "data"
 
 
 class _Request(NamedTuple):
@@ -156,7 +167,8 @@ class _Engine:
     """
 
     def __init__(self, model: CoclusterModel, version: str,
-                 device: torch.device):
+                 device: torch.device, devices=None, *, shard: bool = True,
+                 mesh_axis: str = "data"):
         self.version = version
         self.device = device
         self.model = model.to(device)
@@ -164,6 +176,23 @@ class _Engine:
                          "cols": model.anchor_rows.cpu().numpy()}
         self._scorers: dict[tuple[str, int], Callable] = {}
         self._lock = threading.Lock()
+        devices = [device] if devices is None else [resolve_device(d) for d in devices]
+        # per axis: [(signatures, mean, first global cluster id)], one entry
+        # per slice, or one for a replicated (unsharded) table
+        self.slices = {}
+        specs = (serve_model_shardings(model, {mesh_axis: len(devices)}, mesh_axis)
+                 if shard and len(devices) > 1 else {})
+        for axis, sigs, mean in (("rows", "row_sigs", "row_mean"),
+                                 ("cols", "col_sigs", "col_mean")):
+            table = getattr(self.model, sigs)
+            if specs and specs[sigs][1][0] == mesh_axis:
+                width = table.shape[0] // len(devices)
+                self.slices[axis] = [
+                    (table[i * width:(i + 1) * width].to(dev),
+                     getattr(self.model, mean).to(dev), i * width)
+                    for i, dev in enumerate(devices)]
+            else:
+                self.slices[axis] = [(table, getattr(self.model, mean), 0)]
 
     def dim(self, axis: str) -> int:
         return self.model.n_cols if axis == "rows" else self.model.n_rows
@@ -193,13 +222,13 @@ class _Engine:
             fn = self._scorers.get(key)
             if fn is not None:
                 return fn
-            m = self.model
-            mean, sigs = ((m.row_mean, m.row_sigs) if axis == "rows"
-                          else (m.col_mean, m.col_sigs))
-            if k == 1:
-                fn = lambda f: _assign(f, mean, sigs)
+            slices = self.slices[axis]
+            if len(slices) > 1:
+                fn = lambda f: _sharded_score(f, slices, k, self.device)
+            elif k == 1:
+                fn = lambda f: _assign(f, slices[0][1], slices[0][0])
             else:
-                fn = lambda f: _assign_topk(f, mean, sigs, k)
+                fn = lambda f: _assign_topk(f, slices[0][1], slices[0][0], k)
             self._scorers[key] = fn
             return fn
 
@@ -214,6 +243,32 @@ class _Engine:
             return tuple(self._scorers)
 
 
+def _sharded_score(feats: torch.Tensor, slices, k: int, device: torch.device):
+    """Score ``feats`` on every slice of a cluster-sharded table and merge
+    the (score, global index) results in slice order, ties to the lower
+    index: the unsharded answer, bit for bit."""
+    outs = []
+    for sigs, mean, first in slices:
+        f = feats.to(sigs.device)
+        if k == 1:
+            labels, scores = _assign(f, mean, sigs)
+        else:
+            labels, scores = _assign_topk(f, mean, sigs, min(k, sigs.shape[0]))
+        outs.append(((labels + first).to(device), scores.to(device)))
+    if k == 1:
+        labels, scores = outs[0]
+        for lab, sc in outs[1:]:
+            take = sc > scores                 # strictly better: ties stay lower
+            labels, scores = torch.where(take, lab, labels), torch.where(take, sc, scores)
+        return AssignResult(labels, scores)
+    labels = torch.cat([lab for lab, _ in outs], dim=1)
+    scores = torch.cat([sc for _, sc in outs], dim=1)
+    # candidates lie in (slice, rank) order, i.e. by index among equal
+    # scores, so a stable descending sort breaks ties to the lower index
+    scores, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    return TopKAssignResult(torch.gather(labels, 1, order)[:, :k], scores[:, :k])
+
+
 class AssignService:
     """Multi-replica assignment service over one live ``CoclusterModel``.
 
@@ -221,14 +276,21 @@ class AssignService:
     the model without dropping anything; ``close`` drains and stops.
     Usable as a context manager. Scoring runs on ``device`` (the card
     unless the caller asks for the CPU); all results are host numpy.
+    ``devices`` lists the slices the tables are cluster-sharded over
+    (``config.shard``): by default every visible card for a CUDA ``device``,
+    only ``device`` for the CPU; a device may appear more than once.
     """
 
     def __init__(self, model: CoclusterModel, *, version: str = "v1",
                  config: ServeConfig = ServeConfig(),
                  metrics: _obs.Registry | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", devices=None):
         self.config = config
         self._device = resolve_device(device)
+        if devices is None:
+            devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                       if self._device.type == "cuda" else [self._device])
+        self._devices = list(devices)
         if config.batch < 1:
             raise ValueError(f"batch must be >= 1, got {config.batch}")
         if config.replicas < 1:
@@ -255,7 +317,7 @@ class AssignService:
             "serve_svc_batch_fill_pct", buckets=tuple(range(5, 101, 5)),
             help="per-batch fill: coalesced rows / batch capacity, %")
 
-        self._engine = _Engine(model, version, self._device)
+        self._engine = self._new_engine(model, version)
         self._engine.warm("rows", 1, config.batch)
 
         self._cond = threading.Condition()
@@ -269,6 +331,10 @@ class AssignService:
             for i in range(config.replicas)]
         for w in self._workers:
             w.start()
+
+    def _new_engine(self, model: CoclusterModel, version: str) -> _Engine:
+        return _Engine(model, version, self._device, self._devices,
+                       shard=self.config.shard, mesh_axis=self.config.mesh_axis)
 
     # -- admission -------------------------------------------------------
     def _reject(self, code: str, detail: str) -> Ticket:
@@ -434,7 +500,7 @@ class AssignService:
         assignment. Returns the displaced version id.
         """
         old = self._engine
-        new = _Engine(model, version, self._device)
+        new = self._new_engine(model, version)
         warmed = old.warmed_keys() or (("rows", 1),)
         for axis, k in warmed:
             if k <= new.n_clusters(axis):

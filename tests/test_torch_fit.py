@@ -17,6 +17,9 @@ Checked, on the CPU:
   the uninterrupted run;
 * FitState checkpoints load in either package and save again with equal
   leaf hashes;
+* ``elastic_restore``: a FitState restored onto four gloo ranks
+  (``tests/torch_dist.py``), each holding its shards, continues to the
+  uninterrupted model leaf for leaf;
 * the loud errors of the reference's tests.
 
 The checks run as one test item: the suite's collected count sets
@@ -31,18 +34,21 @@ import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_dist
 import torch_parity
 
 from repro import checkpoint as jckpt
 from repro import streaming as jstreaming
 from repro.core.metrics import nmi
 from repro.data import planted_cocluster_matrix
+from repro.runtime import shardings as jshardings
 from repro_torch import checkpoint, interop, obs, streaming
 from repro_torch.data import to_bcoo
 from repro_torch.runtime.fault_tolerance import (
@@ -315,6 +321,40 @@ def check_kill_and_resume(tmp_path):
         streaming.load_fit_state(str(tmp_path / "corrupt"), cfg, device=CPU)
 
 
+def check_elastic_restore(tmp_path):
+    """The reference's elastic test (``tests/test_fault_tolerance.py``,
+    ``_ELASTIC_SCRIPT``) on four gloo ranks: a FitState written by one
+    process, restored with ``stream_state_specs`` onto a 4-rank mesh (each
+    rank holding a quarter of ``res_vals``), continued to the uninterrupted
+    model leaf for leaf on every rank; the placements are the reference's
+    ``PartitionSpec``s on the same shapes."""
+    data = planted_cocluster_matrix(np.random.default_rng(0), 400, 360, k=4, d=3,
+                                    signal=3.5, noise=0.4)
+    cfg = streaming.StreamConfig(n_row_clusters=4, n_col_clusters=3, col_blocks=2,
+                                 chunk_resamples=1, signature_dim=32, anchor_rows=32,
+                                 seed=11, merge_restarts=2)
+    chunks = [data.matrix[i:i + 100] for i in range(0, 400, 100)]
+    m0, _ = streaming.fit([torch.from_numpy(c) for c in chunks], cfg, device=CPU)
+    d = str(tmp_path / "ckpt")
+    f = streaming.StreamingCocluster(cfg, device=CPU)
+    for chunk in chunks[:2]:
+        f.partial_fit(chunk)
+    streaming.save_fit_state(d, f)
+    outs = torch_dist.run_world(torch_dist.elastic_continue, 4, tmp_path, d,
+                                dataclasses.asdict(cfg), chunks[2:], 4)
+    template, _ = checkpoint.restore_tree(d, 2)
+    want = jshardings.stream_state_specs(template, types.SimpleNamespace(shape={"data": 4}))
+    for rank, out in enumerate(outs):
+        assert out["kind"] == "stream_fit_state"
+        assert out["local_res_vals"] == (32, 90), f"rank {rank}: {out['local_res_vals']}"
+        for name, spec in out["specs"].items():
+            assert spec == tuple(want[name]), f"elastic: {name} spec {spec}"
+        for name in streaming.CoclusterModel._fields:
+            x, y = getattr(m0, name).numpy(), out["model"][name]
+            assert x.dtype == y.dtype and np.array_equal(x, y), \
+                f"elastic restore, rank {rank}: {name} differs"
+
+
 # --- against the reference -------------------------------------------------------
 
 
@@ -384,6 +424,8 @@ def test_streaming_fit_and_recovery(tmp_path):
     try:
         check_recovery_loop(tmp_path / "loop")
         check_kill_and_resume(tmp_path / "kill")
+        (tmp_path / "elastic").mkdir()
+        check_elastic_restore(tmp_path / "elastic")
         check_reference_parity(tmp_path / "ref")
     finally:
         jax.clear_caches()

@@ -183,6 +183,28 @@ def test_lamc_on_the_card_matches_the_cpu_path():
         assert nmi(getattr(card, f"{side}_labels").cpu().numpy(),
                    getattr(host, f"{side}_labels").numpy()) >= 0.95
 
+    # distributed_lamc on a one-rank NCCL mesh: lamc_cocluster's result exactly
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.core import distributed
+    from repro_torch.launch import mesh as _mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1)
+        try:
+            ops.reset_launch_counts()
+            one = distributed.distributed_lamc(_mesh.make_test_mesh(1, 1), pc.matrix, cfg,
+                                               plan, draws=draws)
+            assert ops.launch_counts()["kmeans_update"] == 2 * 16
+            assert ops.launch_counts()["scale_apply"] == 2
+        finally:
+            dist.destroy_process_group()
+    for key in ("row_labels", "col_labels", "row_votes", "col_votes", "row_membership",
+                "col_membership"):
+        assert torch.equal(getattr(one, key), getattr(card, key)), key
+
 
 def _tiled(seed, m, n, density, bm, bk, dev):
     from repro_torch.data import to_bcoo
@@ -465,6 +487,19 @@ def test_serving_on_the_card_matches_the_cpu_path(tmp_path):
         tickets = [svc.submit(pc.matrix[i:i + 5]) for i in range(0, 40, 5)]
         got = np.concatenate([t.result(timeout=60.0).labels for t in tickets])
     np.testing.assert_array_equal(got, streaming.assign_rows(host, pc.matrix[:40]).labels)
+
+    # the tables cluster-sharded over four slices of the card (K = 4: one
+    # cluster each): the unsharded service's labels and score bits
+    cfg = streaming.ServeConfig(batch=16, replicas=1)
+    with streaming.AssignService(card, config=cfg) as one, \
+            streaming.AssignService(card, config=cfg, devices=[dev] * 4) as four:
+        assert len(four._engine.slices["rows"]) == 4
+        for x, axis, k in ((pc.matrix[:16], "rows", 1), (pc.matrix[:16], "rows", 3),
+                           (pc.matrix.T[:16].copy(), "cols", 2)):
+            want = one.submit(x, axis=axis, k=k).result(timeout=60.0)
+            got = four.submit(x, axis=axis, k=k).result(timeout=60.0)
+            np.testing.assert_array_equal(got.labels, want.labels)
+            np.testing.assert_array_equal(got.scores.view(np.int32), want.scores.view(np.int32))
 
 
 # ---------------------------------------------------------------------------

@@ -10,18 +10,22 @@ import torch
 
 from repro_torch import checkpoint, interop, streaming
 from repro_torch.configs import reduced
-from repro_torch.core import baselines, kmeans, lamc, spectral
+from repro_torch.core import baselines, distributed, kmeans, lamc, spectral
 from repro_torch.core.nmtf import nmtf
 from repro_torch.data import to_bcoo
-from repro_torch.launch import profile_serve, serve, serve_lamc
+from repro_torch.launch import mesh, profile_serve, serve, serve_lamc
 from repro_torch.models import build_model
+from repro_torch.runtime import fault_tolerance
 
 ROOT = Path(__file__).resolve().parents[1]
 # The out-of-core fit's files are checked inside one item, not as cases of
 # their own: each case moves pytest-xdist's schedule (ROADMAP.md queue 3,
 # "The count rule").
 GROUPED_FILES = [ROOT / "src" / "repro_torch" / name for name in
-                 ("runtime/__init__.py", "runtime/fault_tolerance.py", "streaming/fit.py")]
+                 ("runtime/__init__.py", "runtime/fault_tolerance.py", "streaming/fit.py",
+                  "runtime/shardings.py", "launch/mesh.py", "core/distributed.py")]
+# Spawned ranks import this helper, so it must stand alone too.
+RANK_HELPERS = [ROOT / "tests" / "torch_dist.py"]
 PORT_FILES = sorted(set((ROOT / "src" / "repro_torch").rglob("*.py")) - set(GROUPED_FILES)) + [
     ROOT / "chip_smoke.py"]
 EXAMPLES = ("torch_quickstart", "torch_text_coclustering")
@@ -48,7 +52,8 @@ def test_port_file_list_is_complete():
             "model.py", "assign.py", "registry.py", "serve.py", "serve_lamc.py",
             "metrics.py", "trace.py", "export.py", "transformer.py", "attention.py",
             "flash_attention.py", "layers.py", "base.py", "qwen3_4b.py", "nmtf.py",
-            "baselines.py", "fit.py", "fault_tolerance.py"} <= names
+            "baselines.py", "fit.py", "fault_tolerance.py", "distributed.py",
+            "shardings.py", "mesh.py"} <= names
 
 
 def _example_main(name):
@@ -104,13 +109,15 @@ def test_registry_load_defaults_to_the_card(monkeypatch, tmp_path):
 
 
 def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
-    """The two example scripts and the out-of-core fit's modules import
-    neither JAX nor the reference, and the NMTF atom, the baselines, both
-    examples' ``main``, the out-of-core fit and the launcher's demo fit ask
-    for the card by default (one item: the collected count is kept,
-    ROADMAP.md queue 3)."""
-    assert all(path.is_file() for path in GROUPED_FILES)
-    for path in [ROOT / "examples" / f"{name}.py" for name in EXAMPLES] + GROUPED_FILES:
+    """The two example scripts, the out-of-core fit's and the distributed
+    driver's modules and the spawned ranks' helper import neither JAX nor
+    the reference, and the NMTF atom, the baselines, both examples'
+    ``main``, the out-of-core fit, the launcher's demo fit, the meshes, the
+    distributed driver and the elastic restore ask for the card by default
+    (one item: the collected count is kept, ROADMAP.md queue 3)."""
+    assert all(path.is_file() for path in GROUPED_FILES + RANK_HELPERS)
+    for path in ([ROOT / "examples" / f"{name}.py" for name in EXAMPLES] + GROUPED_FILES
+                 + RANK_HELPERS):
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{path.name} imports {bad}"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -124,6 +131,12 @@ def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
                  lambda: streaming.fit([a], streaming.StreamConfig(2, 2)),
                  lambda: streaming.StreamingCocluster(streaming.StreamConfig(2, 2)),
                  lambda: streaming.iter_row_chunks(a, 10),
-                 lambda: serve_lamc.fit_demo_model(str(tmp_path))):
+                 lambda: serve_lamc.fit_demo_model(str(tmp_path)),
+                 lambda: mesh.make_test_mesh(1, 1),
+                 lambda: mesh.make_production_mesh(),
+                 lambda: distributed.distributed_lamc(
+                     {"data": 1, "model": 1}, a, lamc.LAMCConfig(2, 2),
+                     lamc.partition.PartitionPlan(40, 30, 2, 1, 20, 30, 1)),
+                 lambda: fault_tolerance.elastic_restore(str(tmp_path), 0, {}, None, {})):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

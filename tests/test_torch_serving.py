@@ -11,7 +11,9 @@ here pays for a reference fit. Checked:
   the same model and requests, dense and COO, and empty results for zero
   rows;
 * ``validate_request`` gives the reference's reason codes;
-* ``AssignService``: coalesced results equal direct ones, top-k and column
+* ``AssignService``: coalesced results equal direct ones (and, with the
+  tables cluster-sharded over CPU slices, the unsharded service's bits),
+  top-k and column
   traffic, zero rows, reject codes, ``queue_full`` (ordered by an ``Event``,
   never by sleeping), close, ``swap`` and ``swap_async``, the registry;
 * ``serve_lamc.serve`` returns the reference's keys.
@@ -29,6 +31,7 @@ import dataclasses
 import os
 import sys
 import threading
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -42,10 +45,13 @@ from repro.core import LAMCConfig as JConfig
 from repro.core.partition import PartitionPlan as JPlan
 from repro.data import to_bcoo as jto_bcoo
 from repro.launch import serve_lamc as jserve_lamc
+from repro.runtime import shardings as jshardings
 from repro_torch import checkpoint, interop, obs, streaming
 from repro_torch.core import lamc
 from repro_torch.data import planted_cocluster_matrix, to_bcoo
 from repro_torch.launch import serve_lamc
+from repro_torch.runtime import shardings
+from repro_torch.streaming import assign
 
 CPU = "cpu"
 WAIT = 60.0
@@ -77,11 +83,11 @@ def _assert_same_model(port_model, ref_model):
         np.testing.assert_array_equal(mine, theirs, err_msg=f)
 
 
-def _service(model, **over):
+def _service(model, devices=None, **over):
     kw = dict(batch=16, replicas=2)
     kw.update(over)
     return streaming.AssignService(model, version="v1", config=streaming.ServeConfig(**kw),
-                                   metrics=obs.Registry(), device=CPU)
+                                   metrics=obs.Registry(), device=CPU, devices=devices)
 
 
 # --- checkpoints across the packages -------------------------------------------
@@ -257,6 +263,13 @@ def test_validate_request_codes_match_the_reference(name):
 
 
 def test_service_coalesces_to_the_direct_answers(fitted):
+    """Coalesced answers equal the direct ones; a service whose tables are
+    cluster-sharded over 4 CPU slices (K = 4: one cluster each), or over 3
+    (which does not divide K: the tables replicate), answers every request
+    (rows and columns, k = 1 and top-k, dense and COO features, B = 1 to a
+    full batch) with the unsharded service's labels and score bits; the
+    placements are the reference's ``serve_model_specs`` /
+    ``stream_state_specs`` on the same shapes."""
     model, _, _, pc = fitted
     sizes = [1, 3, 16, 0, 7, 5]
     reqs, off = [], 0
@@ -274,6 +287,46 @@ def test_service_coalesces_to_the_direct_answers(fitted):
             np.testing.assert_allclose(res.scores, want.score.numpy(), rtol=RTOL, atol=ATOL)
         workers = list(svc._workers)
     assert not any(w.is_alive() for w in workers)
+
+    rng = np.random.default_rng(5)
+    rows = (pc.matrix[:16] + rng.normal(size=(16, 384))).astype(np.float32)
+    cols = (pc.matrix.T[:16] + rng.normal(size=(16, 512))).astype(np.float32)
+    traffic = [(x[:b], axis, k) for x, axis in ((rows, "rows"), (cols, "cols"))
+               for b in (1, 7, 16) for k in (1, 2, 4)]
+    with _service(model) as one:
+        want = [one.submit(*req).result(timeout=WAIT) for req in traffic]
+        want_coo = [one._engine.scorer("rows", k)(
+            assign._gather_anchor(to_bcoo(rows, CPU), model.anchor_cols)) for k in (1, 3)]
+    for slices, sharded in ((4, True), (3, False)):
+        with _service(model, devices=[CPU] * slices) as svc:
+            assert [len(svc._engine.slices[a]) for a in ("rows", "cols")] == \
+                [slices if sharded else 1] * 2, slices
+            for req, w in zip(traffic, want):
+                got = svc.submit(*req).result(timeout=WAIT)
+                what = f"{slices} slices, {req[1]} B={len(req[0])} k={req[2]}"
+                assert got.ok, (what, got.detail)
+                np.testing.assert_array_equal(got.labels, w.labels, err_msg=what)
+                np.testing.assert_array_equal(got.scores.view(np.int32),
+                                              w.scores.view(np.int32), err_msg=what)
+            for k, w in zip((1, 3), want_coo):
+                got = svc._engine.scorer("rows", k)(
+                    assign._gather_anchor(to_bcoo(rows, CPU), model.anchor_cols))
+                assert all(torch.equal(g, x) for g, x in zip(got, w)), f"COO k={k}"
+        places = shardings.serve_model_shardings(model, {"data": slices})
+        theirs = jshardings.serve_model_specs(_reference_model(model),
+                                              types.SimpleNamespace(shape={"data": slices}))
+        for field in model._fields:
+            assert places[field][1] == tuple(getattr(theirs, field)), (slices, field)
+    tree = {"res_vals": np.zeros((32, 400)), "scalars": np.zeros(5),
+            "atom_sigs": {"0": np.zeros((8, 32)), "1": np.zeros((6, 7))}}
+    mesh = {"data": 4}
+    ours = shardings.stream_state_specs(tree, mesh)
+    theirs = jshardings.stream_state_specs(tree, types.SimpleNamespace(shape=mesh))
+    assert shardings.partition_spec(ours["res_vals"], mesh, 2) == tuple(theirs["res_vals"])
+    assert shardings.partition_spec(ours["scalars"], mesh, 1) == tuple(theirs["scalars"])
+    for key in ("0", "1"):
+        assert shardings.partition_spec(ours["atom_sigs"][key], mesh, 2) == \
+            tuple(theirs["atom_sigs"][key])
 
 
 def test_service_topk_and_column_traffic(fitted):
