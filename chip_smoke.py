@@ -8,14 +8,23 @@ toolkit and Triton::
 
 ``--time-kmeans SRC`` only times the k-means kernels of the tree whose
 ``src/`` is SRC (``time_kmeans`` below), and ``--time-spmm SRC`` its
-``spmm_ata`` at the sparse cell (``time_spmm``), to compare two commits on
-one card.
+``spmm_ata`` at the sparse cell (``time_spmm``), and ``--time-dispatch SRC``
+its ``ops`` k-means calls and served latency at B = 1 (``time_dispatch``),
+to compare two commits on one card.
 
 Phases, each printing one JSON line:
 
 1. ``device``: the card's name, count, power limit.
 2. ``build``: nvcc builds ``src/repro_torch/kernels/csrc/*.cu`` while the
    Triton kernel compiles; build seconds and the ptxas report.
+2a. ``analysis``: the port's analyzer, both layers, strict, on the card
+   (``python -m repro_torch.analysis --strict``): the AST lint; each entry
+   point's op count, sync count (plain and ``_obs`` twin) and rebuilds on a
+   repeat call at the same shapes (the entries launch kernels 1-8 through
+   ``ops``); each kernel instance's shared-memory estimate beside what the
+   card reports (static bytes, registers and spills from ptxas, dynamic
+   bytes from the launcher); what ``obs.kernel_dispatch`` costs the host a
+   call. Any finding, a kernel entry that syncs or a rebuild fails it.
 3. ``kernel``: each hand-written kernel at the shapes the main path gives it,
    against its plain PyTorch version on the same inputs, then timed with
    CUDA events beside its bound and the plain version (the k-means rows
@@ -28,7 +37,9 @@ Phases, each printing one JSON line:
    planted matrix (made on the card from ``--seed``) through
    ``lamc_cocluster`` with the plan search, per-phase CUDA-event times, peak
    memory, NMI/ARI against the planted truth, and the kernels' launch counts
-   during that run; then ``kmeans_split``: its k-means phase at its shape
+   during that run, then one more fit, untimed, with its host syncs counted
+   under ``torch.cuda.set_sync_debug_mode("warn")``; then ``kmeans_split``:
+   its k-means phase at its shape
    on random points, k-means++ seeding apart from the Lloyd steps.
 6. ``kernel`` (sparse): the three SpMM kernels at the sparse cell's shapes
    (its 131,072 x 16,384 operator at density 0.1, rank 6), with and without
@@ -38,7 +49,10 @@ Phases, each printing one JSON line:
    ``spmm_ata`` row also gives its grid, bands and ring slots, and
    ``spmm_ata_band_cost`` what a band costs with one payload in it (checked
    against the plain version) and what a new operator's schedule costs; and
-   the k-means kernels at the sparse cell's shape.
+   the k-means kernels at the sparse cell's shape. ``syncs``: the host
+   syncs of phase 5's extra fit and of this operator's conversion, by
+   Python line, beside those of the audit's ``lamc_dense`` and
+   ``tiled_convert`` entries (phase 2a), which run small shapes and plans.
 7. ``parity_sparse``: a small planted COO matrix on a single-block tiled plan
    on the card and on the CPU with the same injected draws (labels agree),
    and a multi-block ``bcoo`` run whose labels equal the dense run's.
@@ -186,7 +200,7 @@ import subprocess
 import sys
 import time
 import traceback
-from collections import defaultdict
+from collections import Counter, defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -461,6 +475,58 @@ def phase_build():
                        if any(w in ln for w in ("entry function", "registers", "spill"))]
                 for name, ((_lib, ptxas), _) in built.items()},
          triton=triton_info)
+
+
+# The kernels the analysis phase's entry points launch (kernels 1-8).
+ANALYSIS_KERNELS = ("kmeans_update", "kmeans_assign", "scale_apply", "cosine_assign",
+                    "cosine_topk", "spmm", "spmm_t", "spmm_ata")
+DISPATCH_COST_CALLS = 200_000
+
+
+def phase_analysis(smi: str) -> tuple[dict, dict]:
+    """``analysis`` (phase 2a); returns the launch counts of the audit's run
+    and each entry's summary."""
+    import torch
+    from repro_torch import obs
+    from repro_torch.analysis import ast_lint, cli, entry_points
+    from repro_torch.kernels import ops
+
+    lint, suppressed = ast_lint.run_ast_lint([str(ROOT / "src" / "repro_torch"),
+                                             str(ROOT / "chip_smoke.py")])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    findings, details = cli.run_audits(None, "cuda")
+    torch.cuda.synchronize()
+    audit_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # the host cost of one dispatch record (a cached labeled counter)
+    t0 = time.perf_counter()
+    for _ in range(DISPATCH_COST_CALLS):
+        obs.kernel_dispatch("dispatch_cost", "cuda")
+    dispatch_us = (time.perf_counter() - t0) / DISPATCH_COST_CALLS * 1e6
+    entries = {rep.name: rep.summary() for rep in details["entries"]}
+    emit("analysis", nvidia_smi=smi, audit_s=audit_s,
+         findings=[f.to_dict() for f in lint + findings],
+         lint_suppressed=[f"{f.path.split('src/')[-1]}:{f.line} [{f.rule}]"
+                          for f in suppressed],
+         entries=entries, recompiles=details["recompiles"], smem=details["smem"],
+         launches=counts, kernel_dispatch_us=dispatch_us)
+    check(not lint and not findings, f"{len(lint) + len(findings)} active findings")
+    check(all(counts[name] > 0 for name in ANALYSIS_KERNELS),
+          f"an analysis entry launched no kernel of {ANALYSIS_KERNELS}: {counts}")
+    check(all(entries[name]["syncs"] == entries[name]["fences"]
+              for name in entry_points.KERNEL_ENTRIES),
+          "a kernel entry synchronized the card beyond its span fences")
+    check(all(e["rebuilds"] == 0 for e in entries.values())
+          and not any(details["recompiles"].values()), "a repeat call rebuilt")
+    check(all(row.get("measured_static_bytes") is not None for row in details["smem"]),
+          "an A4 row has no measurement")
+    return counts, entries
+
+
+def site_counts(sites: list) -> dict:
+    """``{"file:line": syncs}`` of a ``dispatch_audit.count_syncs`` run."""
+    return dict(sorted(Counter(sites).items()))
 
 
 def _label_check(x, c, labels, want):
@@ -909,6 +975,7 @@ def planted_on_card(rows: int, cols: int, k: int, gen):
 
 def phase_e2e(seed: int):
     import torch
+    from repro_torch.analysis import dispatch_audit
     from repro_torch.core import lamc
     from repro_torch.core.metrics import ari, nmi
     from repro_torch.kernels import ops
@@ -951,8 +1018,12 @@ def phase_e2e(seed: int):
           "label shapes")
     check(scores["row_nmi"] >= 0.8 and scores["col_nmi"] >= 0.8,
           f"NMI against the planted truth below 0.8: {scores}")
+    # the implicit syncs of one fit at the cell's plan (untimed, after the
+    # launch counts are read)
+    _, sync_sites = dispatch_audit.count_syncs(lamc.lamc_cocluster, a, cfg)
+    torch.cuda.synchronize()
     return counts, dict(result=res, config=cfg, matrix=a, row_truth=row_truth,
-                        col_truth=col_truth, mu=mu, wall_s=wall)
+                        col_truth=col_truth, mu=mu, wall_s=wall, sync_sites=sync_sites)
 
 
 def phase_kmeans_split(gen) -> dict:
@@ -2151,16 +2222,19 @@ def spmm_ata_band_cost(lazy, x, plan, cell_ms: float) -> dict:
                 schedule_ms=cuda_time(new_schedule, 5, warmup=1))
 
 
-def phase_kernels_sparse(a, gen) -> dict:
+def phase_kernels_sparse(a, gen) -> tuple[dict, dict, list]:
     """The SpMM kernels at the sparse cell's shapes, on its own operator:
     unscaled, and with the normalization's scales lazy (the main path's
     form), each against its plain version; then timed. Also the k-means
-    kernels at the cell's atom shape."""
+    kernels at the cell's atom shape. Returns the rows, the k-means rows
+    and the sync sites of the operator's conversion."""
     import torch
+    from repro_torch.analysis import dispatch_audit
     from repro_torch.core import sparse, spectral
     from repro_torch.kernels import ref, spmm
 
-    op = sparse.to_tiled(a)                      # no cache: the e2e run converts anew
+    # no cache: the e2e run converts anew
+    op, sync_sites = dispatch_audit.count_syncs(sparse.to_tiled, a)
     lazy, _, _ = spectral.normalize_bipartite(op)
     check(lazy.has_scales, "the normalized operator on the card must keep lazy scales")
     eager = lazy.materialize_scales()
@@ -2239,7 +2313,7 @@ def phase_kernels_sparse(a, gen) -> dict:
     del op, lazy, eager
     torch.cuda.empty_cache()
     kms = kmeans_rows(SPARSE_KMEANS_SHAPE, gen)
-    return rows, kms
+    return rows, kms, sync_sites
 
 
 def phase_parity_sparse():
@@ -2378,6 +2452,54 @@ def time_kmeans(src: Path, seed: int) -> int:
                  ms=cuda_time(fn, 200), device_ms=graph_time(fn, 200, side))
         del x, c
         torch.cuda.empty_cache()
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+def time_dispatch(src: Path, seed: int) -> int:
+    """``--time-dispatch SRC``: the two places where a dispatch record is
+    paid, in the tree whose ``src/`` is SRC (it builds into the ``build/``
+    beside it): ``ops.kmeans_update`` and ``ops.kmeans_assign`` eager at
+    ATOM_SHAPE (through ``ops``, which meters each call's tier where the
+    tree has ``obs.kernel_dispatch``), each three times in turn with its
+    wrapper called directly, so that ``ops_ms - wrapper_ms`` is the ``ops``
+    layer's host cost a call in one process; and the served latency at B = 1
+    (``serve_lamc.serve``, SERVE_ROW_BATCHES[1] requests) of a model fitted
+    on the dense cell's matrix from ``seed``; no check, no other phase. To
+    compare two commits on one card, unpack the older one's tree under
+    ``build/`` and run this for both trees in one call, in the order old,
+    new, new, old."""
+    import torch
+    from repro_torch import streaming
+    from repro_torch.core import lamc
+    from repro_torch.kernels import kmeans_assign, kmeans_update, ops
+    from repro_torch.launch import serve_lamc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, c, _ = _kmeans_inputs(ATOM_SHAPE, False, gen)
+    for name, wrapper, via_ops in (
+            ("kmeans_update", lambda: kmeans_update.kmeans_update(x, c),
+             lambda: ops.kmeans_update(x, c)),
+            ("kmeans_assign", lambda: kmeans_assign.kmeans_assign(x, c),
+             lambda: ops.kmeans_assign(x, c))):
+        times = {"wrapper_ms": [], "ops_ms": []}
+        for _ in range(3):
+            times["wrapper_ms"].append(cuda_time(wrapper, 200))
+            times["ops_ms"].append(cuda_time(via_ops, 200))
+        emit("time_dispatch", src=str(src), name=name, shape=list(ATOM_SHAPE), **times)
+    del x, c
+    a, _, _, _ = planted_on_card(E2E_ROWS, E2E_COLS, E2E_K, gen)
+    cfg = lamc.LAMCConfig(**E2E_CONFIG, seed=seed)
+    res = lamc.lamc_cocluster(a, cfg)
+    del a
+    with scratch_dir() as tmp:
+        path = f"{tmp}/model"
+        streaming.save_model(path, streaming.model_from_result(res), cfg=cfg, plan=res.plan)
+        out = serve_lamc.serve(path, batch=1, requests=SERVE_ROW_BATCHES[1], warmup=3,
+                               axis="rows", seed=seed)
+    emit("time_dispatch", src=str(src), name="serve_rows_b1",
+         **{key.split("serve_assign_rows_")[1]: value for key, value in out.items()
+            if key.startswith("serve_assign_rows_") and key.endswith("_us")})
     print(nvidia_smi(), flush=True)
     return 0
 
@@ -2593,6 +2715,9 @@ def main() -> int:
                         help="only time the k-means kernels of the tree whose src/ is SRC")
     parser.add_argument("--time-spmm", type=Path, metavar="SRC",
                         help="only time spmm_ata of the tree whose src/ is SRC")
+    parser.add_argument("--time-dispatch", type=Path, metavar="SRC",
+                        help="only time the ops k-means calls and the served p50 at "
+                             "B = 1 of the tree whose src/ is SRC")
     args = parser.parse_args()
 
     import torch
@@ -2605,7 +2730,8 @@ def main() -> int:
         print(f"chip_smoke: the port's sources are not beside {Path(__file__).name}",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str((args.time_kmeans or args.time_spmm or ROOT / "src").resolve()))
+    sys.path.insert(0, str((args.time_kmeans or args.time_spmm or args.time_dispatch
+                            or ROOT / "src").resolve()))
     from repro_torch.device import fp32_policy
 
     fp32_policy()
@@ -2613,12 +2739,15 @@ def main() -> int:
         return time_kmeans(args.time_kmeans, args.seed)
     if args.time_spmm:
         return time_spmm(args.time_spmm, args.seed)
+    if args.time_dispatch:
+        return time_dispatch(args.time_dispatch, args.seed)
     try:
         smi = nvidia_smi()
         kind = torch.cuda.get_device_name(0)
         emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
              torch=torch.__version__, cuda=torch.version.cuda)
         phase_build()
+        analysis_counts, audit_entries = phase_analysis(smi)
         rows = phase_kernels(torch.Generator(device="cuda").manual_seed(args.seed))
         phase_parity()
         dense_counts, dense_cell = phase_e2e(args.seed)
@@ -2637,6 +2766,7 @@ def main() -> int:
         pods_counts = phase_e2e_dist_pods(dense_cell, smi)
         serve_sharded_counts = phase_serve_sharded(dense_cell, smi)
         elastic_counts = phase_elastic(dense_cell, args.seed, smi)
+        dense_syncs = dense_cell["sync_sites"]
         del dense_cell
         torch.cuda.empty_cache()
         ooc_counts = phase_e2e_stream_ooc(args.seed, smi)
@@ -2645,7 +2775,17 @@ def main() -> int:
         example_counts = phase_examples()
         gen = torch.Generator(device="cuda").manual_seed(args.seed + 1)
         cell = planted_sparse_on_card(E2E_ROWS, E2E_COLS, E2E_K, SPARSE_DENSITY, gen)
-        sparse_rows, sparse_kmeans = phase_kernels_sparse(cell[0], gen)
+        sparse_rows, sparse_kmeans, conversion_syncs = phase_kernels_sparse(cell[0], gen)
+        # the main path's implicit syncs beside the audit's (whose entries
+        # run the reference's small shapes and plans)
+        emit("syncs", nvidia_smi=smi,
+             lamc_dense_131k_fit=dict(plan=E2E_PLAN, syncs=len(dense_syncs),
+                                      sites=site_counts(dense_syncs)),
+             lamc_sparse_131k_conversion=dict(syncs=len(conversion_syncs),
+                                              sites=site_counts(conversion_syncs)),
+             audit={name: dict(syncs=audit_entries[name]["syncs"],
+                               sites=audit_entries[name].get("sync_sites", {}))
+                    for name in ("lamc_dense", "tiled_convert")})
         phase_parity_sparse()
         sparse_counts = phase_e2e_sparse(*cell, args.seed)
         del cell
@@ -2666,7 +2806,8 @@ def main() -> int:
              "lamc_dense_131k_dist_shared4": shared4_counts,
              "lamc_dense_131k_dist_pods": pods_counts,
              "lamc_dense_131k_serve_sharded": serve_sharded_counts,
-             "lamc_stream_131k_elastic": elastic_counts}
+             "lamc_stream_131k_elastic": elastic_counts,
+             "analysis_audit": analysis_counts}
     summary = []
     for name, row in rows.items():
         # launches: per run of the first cell that launches the kernel

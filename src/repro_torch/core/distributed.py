@@ -162,6 +162,7 @@ def _gather_axis(x: torch.Tensor, mesh, layout: _Layout, axis: str, dim: int) ->
         return x
     group = mesh.get_group(axis)
     stage = _staged(x, group)
+    # repro: allow[R2] gloo moves CUDA tensors through host memory (the staged collective)
     src = x.cpu() if stage else x.contiguous()
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
@@ -177,6 +178,7 @@ def _sum_axis(x: torch.Tensor, mesh, layout: _Layout, axis: str) -> torch.Tensor
         return x
     group = mesh.get_group(axis)
     if _staged(x, group):
+        # repro: allow[R2] gloo moves CUDA tensors through host memory (the staged collective)
         host = x.cpu()
         dist.all_reduce(host, group=group)
         return host.to(x.device)
@@ -215,6 +217,7 @@ def _block_group(mesh, layout: _Layout):
 def _all_to_all(send: torch.Tensor, send_splits, recv_splits, group) -> torch.Tensor:
     recv_total = sum(recv_splits)
     stage = _staged(send, group)
+    # repro: allow[R2] gloo moves CUDA tensors through host memory (the staged collective)
     src = send.cpu() if stage else send
     recv = torch.empty(recv_total, dtype=src.dtype, device=src.device)
     dist.all_to_all_single(recv, src, output_split_sizes=list(recv_splits),
@@ -333,6 +336,7 @@ def _gather_slivers(a_loc, layout: _Layout, me: int, members, group,
         return row_part[: r1 - r0], col_part[:, : c1 - c0]
     flat = torch.cat([row_part.flatten(), col_part.flatten()])
     stage = _staged(flat, group)
+    # repro: allow[R2] gloo moves CUDA tensors through host memory (the staged collective)
     src = flat.cpu() if stage else flat
     parts = [torch.empty_like(src) for _ in members]
     dist.all_gather(parts, src, group=group)

@@ -145,6 +145,7 @@ def _operator_index(given, n_points: int, groups: int, size: int,
     """The operator path's index map, ``arange`` as ``(groups, size)``; an
     injected map must be that one (the path does not permute)."""
     natural = torch.arange(n_points, device=device).reshape(groups, size)
+    # repro: allow[R2] checks an injected index map (draws= only); a seeded run passes None
     if given is not None and not torch.equal(given.to(device), natural):
         raise ValueError("the operator path does not permute: an injected "
                          "index map must be arange(n).reshape(groups, size)")

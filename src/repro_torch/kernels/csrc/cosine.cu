@@ -75,6 +75,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 
 namespace cg = cooperative_groups;
@@ -472,6 +473,9 @@ cosine_topk_kernel(const float* __restrict__ x, const float* __restrict__ s,
   if (cs > 1) cluster.sync();   // no CTA leaves while another reads its lists
 }
 
+// cudaFuncSetAttribute calls made so far (the analyzer's rebuild audit).
+std::atomic<int> g_attribute_sets{0};
+
 // Launch one tile shape: a cluster of up to kMaxCluster / kWarpsK CTAs per
 // point tile along the signature passes.
 template <class T>
@@ -489,6 +493,7 @@ cudaError_t launch(const float* x, const float* s, int P, int Q, int K, int k_to
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (T::kSmem > 48 * 1024 && !opted_in[dev]) {
+    ++g_attribute_sets;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(T::kSmem));
     if (err != cudaSuccess) return err;
@@ -530,6 +535,17 @@ extern "C" {
 const char* cosine_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// Dynamic shared memory (bytes) a launch over K signatures requests, and its
+// threads a block in *threads (K <= 16 takes the narrow tile).
+int cosine_smem_bytes(int K, int* threads) {
+  const bool narrow = K <= Narrow::kTileK;
+  if (threads != nullptr) *threads = narrow ? Narrow::kThreads : Wide::kThreads;
+  return static_cast<int>(narrow ? Narrow::kSmem : Wide::kSmem);
+}
+
+// cudaFuncSetAttribute calls this library has made.
+int cosine_attribute_sets(void) { return g_attribute_sets.load(); }
 
 // The largest k_top kept as a running top-k: above it the caller passes a
 // (P, K) scratch for the scores.

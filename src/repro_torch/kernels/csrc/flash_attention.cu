@@ -79,6 +79,7 @@
 // Plain C interface for ctypes; every entry point returns a cudaError_t, or
 // kEncodeError + the CUresult of a failed tensor-map encode.
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -106,6 +107,9 @@ __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+
+// cudaFuncSetAttribute calls made so far (the analyzer's rebuild audit).
+std::atomic<int> g_attribute_sets{0};
 
 template <int kDh>
 constexpr size_t smem_floats() {
@@ -303,6 +307,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   // belongs to the current device, the one the launch goes to: the wrapper
   // makes the tensors' device current first).
   if (smem > 48 * 1024 && opted[dev] < smem) {
+    ++g_attribute_sets;
     err = cudaFuncSetAttribute(flash_fwd_kernel<T, kDh>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -1055,6 +1060,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, in
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (opted[dev] < (size_t)C::kSmem) {
+    ++g_attribute_sets;
     err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<kDh>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1093,6 +1099,21 @@ const char* flash_error_string(int err) {
   }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// Dynamic shared memory (bytes) a launch at head width Dh requests from the
+// kernel `route` numbers (1 the wgmma kernel, 0 the float32 pipe), and its
+// threads a block in *threads; -1 for a Dh outside 1..256.
+int flash_smem_bytes(int route, int Dh, int* threads) {
+  if (Dh < 1 || Dh > 256) return -1;
+  if (threads != nullptr) *threads = route ? kCtaThreads : kThreads;
+  if (route) return Dh <= 64 ? Cfg<64>::kSmem : Dh <= 128 ? Cfg<128>::kSmem : Cfg<256>::kSmem;
+  const size_t floats = Dh <= 64 ? smem_floats<64>() : Dh <= 128 ? smem_floats<128>()
+                                                                  : smem_floats<256>();
+  return static_cast<int>(floats * sizeof(float));
+}
+
+// cudaFuncSetAttribute calls this library has made.
+int flash_attribute_sets(void) { return g_attribute_sets.load(); }
 
 // The largest head width one launch takes.
 int flash_max_head_dim(void) { return 256; }

@@ -72,6 +72,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -567,6 +568,18 @@ bool uses_narrow(int D, int K) { return D <= kNarrowMaxD && K <= kNarrowMaxK; }
 
 int tile_points(int D, int K) { return uses_narrow(D, K) ? kNarrowTile : Wide::kTileP; }
 
+// The narrow instance a launch at D takes: one for each D <= 8, one for 9 <= D <= 16.
+constexpr int narrow_bound(int D) { return D <= 8 ? D : kNarrowMaxD; }
+
+// Dynamic shared memory (bytes) of the tile kernel a launch at (D, K) takes.
+size_t tile_smem(int D, int K, bool update) {
+  if (!uses_narrow(D, K)) return Wide::kSmem;
+  return sizeof(float) * narrow_smem(round4(narrow_bound(D)), D, K, update).total;
+}
+
+// cudaFuncSetAttribute calls made so far (the analyzer's rebuild audit).
+std::atomic<int> g_attribute_sets{0};
+
 // Raise a kernel's dynamic shared-memory limit to `most` once per device, so
 // steady-state launches (and launches captured in a CUDA graph) make no
 // attribute call. The limit is an attribute of the current device, the one
@@ -580,6 +593,7 @@ cudaError_t allow_smem(Kernel kernel, size_t most, bool (&opted)[kMaxDevices]) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (opted[dev]) return cudaSuccess;
+  ++g_attribute_sets;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(most));
   if (err == cudaSuccess) opted[dev] = true;
@@ -598,7 +612,7 @@ cudaError_t launch_narrow(const float* x, const float* c, const float* w, int B,
       sizeof(float) * narrow_smem(CS, DM, kNarrowMaxK, kUpdate).total;
   cudaError_t err = allow_smem(kernel, most, opted);
   if (err != cudaSuccess) return err;
-  const size_t smem = sizeof(float) * narrow_smem(CS, D, K, kUpdate).total;
+  const size_t smem = tile_smem(D, K, kUpdate);
   const dim3 grid(static_cast<unsigned>((P + kNarrowTile - 1LL) / kNarrowTile), B);
   kernel<<<grid, kThreads, smem, stream>>>(x, c, w, P, D, K, labels, d2, partials);
   return cudaGetLastError();
@@ -648,6 +662,18 @@ extern "C" {
 // Points one partial of the update covers at (D, K); kmeans_update_f32's
 // partials hold ceil(P / kmeans_tile(D, K)) of them for each block.
 int kmeans_tile(int D, int K) { return tile_points(D, K); }
+
+// Dynamic shared memory (bytes) of the tile kernel a launch at (D, K) requests
+// (update != 0: kmeans_update_f32's), and its threads a block in *threads; the
+// cross-tile sum takes none. -1 for D or K below 1.
+int kmeans_smem_bytes(int D, int K, int update, int* threads) {
+  if (threads != nullptr) *threads = kThreads;
+  if (D < 1 || K < 1) return -1;
+  return static_cast<int>(tile_smem(D, K, update != 0));
+}
+
+// cudaFuncSetAttribute calls this library has made.
+int kmeans_attribute_sets(void) { return g_attribute_sets.load(); }
 
 const char* kmeans_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

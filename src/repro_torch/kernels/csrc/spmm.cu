@@ -84,6 +84,7 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace {
@@ -1076,6 +1077,9 @@ cudaError_t transpose(const float* blocks, const int* block_rows, const int* t_o
 }
 
 
+// cudaFuncSetAttribute calls made so far (the analyzer's rebuild audit).
+std::atomic<int> g_attribute_sets{0};
+
 // Raise spmm_ata_kernel<RN>'s dynamic shared-memory limit once per device (the
 // current one, which the wrapper makes the tensors' device), then launch it
 // cooperatively: the launch fails unless every CTA can be resident at once,
@@ -1088,6 +1092,7 @@ cudaError_t launch_ata(const AtaArgs& args, int grid, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!opted[dev]) {
+    ++g_attribute_sets;
     err = cudaFuncSetAttribute(spmm_ata_kernel<RN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                AtaSmem::total);
     if (err != cudaSuccess) return err;
@@ -1115,6 +1120,19 @@ extern "C" {
 const char* spmm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+// Dynamic shared memory (bytes) a launch of kernel `which` requests, and its
+// threads a block in *threads: 0 spmm_fwd_kernel, 1 spmm_t_kernel, 2
+// spmm_ata_kernel, 3 sum_parts_kernel, 4 gram_reduce_kernel; -1 for another.
+int spmm_smem_bytes(int which, int* threads) {
+  static const int kThreadsOf[] = {kThreads, kThreads, kAtaThreads, kReduceThreads, 64};
+  if (which < 0 || which > 4) return -1;
+  if (threads != nullptr) *threads = kThreadsOf[which];
+  return which == 2 ? AtaSmem::total : 0;
+}
+
+// cudaFuncSetAttribute calls this library has made.
+int spmm_attribute_sets(void) { return g_attribute_sets.load(); }
 
 // out (M, r) = A @ b, b (K, r). part: (split, M, r) scratch when split > 1.
 int spmm_f32(const float* blocks, const int* block_cols, const int* row_ptr,

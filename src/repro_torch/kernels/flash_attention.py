@@ -44,6 +44,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``chunk_size`` is the reference's KV chunk; it sets only the value of a
     row with no live key (see ``dead_row_count``). Empty inputs return
     without a launch (an empty grid is an error)."""
+    # repro: allow[R3] the launch counter and route of ops.launch_counts (host-side launches)
     global launches, last_route
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"expected q (B, Hq, Sq, Dh) and k, v (B, Hkv, Skv, Dh), got "

@@ -36,6 +36,7 @@ def kmeans_update(x: torch.Tensor, centroids: torch.Tensor,
                   weights: torch.Tensor | None = None):
     """``(labels (B, P) int32, d2 (B, P), sums (B, K, D), counts (B, K))``
     computed by the CUDA kernel; ``weights=None`` weighs every point 1."""
+    # repro: allow[R3] the launch counter of ops.launch_counts (host-side launches)
     global launches
     check_points(x, centroids, weights)
     lib = _build.load("kmeans")

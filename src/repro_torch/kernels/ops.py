@@ -12,12 +12,16 @@ takes ``(B, H, S, Dh)`` heads, as the LM's attention does.
 The SpMM family takes one tile-level sparse matrix
 (``spmm.BlockSparseMatrix``); ``spmm`` and ``sddmm`` on a COO tensor have
 no TPU kernel in the reference either and stay plain PyTorch.
+
+Every call meters its tier with ``obs.kernel_dispatch(op, tier)``: ``cuda``
+or ``triton`` for a kernel, ``ref`` for the plain version.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import obs as _obs
 from . import bipartite_normalize as _scale
 from . import flash_attention as _flash
 from . import kmeans_assign as _assign
@@ -51,9 +55,17 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"kernels run on CUDA or CPU tensors, got {t.device}")
 
 
+def _tier(op: str, t: torch.Tensor, kernel: str = "cuda", **attrs) -> bool:
+    """Whether ``op`` launches its kernel on ``t`` (a CUDA tensor); meters
+    the tier it takes."""
+    cuda = _on_cuda(t)
+    _obs.kernel_dispatch(op, kernel if cuda else "ref", **attrs)
+    return cuda
+
+
 def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     """Nearest centroid: ``(labels (B, P) int32, d2 (B, P))``."""
-    if _on_cuda(x):
+    if _tier("kmeans_assign", x):
         return _assign.kmeans_assign(x, centroids)
     return ref.kmeans_assign_ref(x, centroids)
 
@@ -61,7 +73,7 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
 def kmeans_update(x: torch.Tensor, centroids: torch.Tensor,
                   weights: torch.Tensor | None = None):
     """One fused Lloyd step: ``(labels, d2, sums (B, K, D), counts (B, K))``."""
-    if _on_cuda(x):
+    if _tier("kmeans_update", x):
         return _update.kmeans_update(x, centroids, weights)
     return ref.kmeans_update_ref(x, centroids, weights)
 
@@ -85,7 +97,7 @@ def cosine_assign(x: torch.Tensor, signatures: torch.Tensor,
     ``x (P, q) @ signatures (K, q).T`` per point over the first ``k_valid``
     signatures (all by default), ties to the lowest id."""
     _check_signatures(x, signatures, k_valid)
-    if _on_cuda(x):
+    if _tier("cosine_assign", x):
         return _assign.cosine_assign(x.to(torch.float32).contiguous(),
                                      signatures.to(torch.float32).contiguous(), k_valid)
     return ref.cosine_assign_ref(x, signatures, k_valid)
@@ -101,7 +113,7 @@ def cosine_topk(x: torch.Tensor, signatures: torch.Tensor, k: int,
         raise ValueError(
             f"top-k width must be in [1, {n_sigs}] (the signature count), "
             f"got k={k}")
-    if _on_cuda(x):
+    if _tier("cosine_topk", x):
         return _assign.cosine_topk(x.to(torch.float32).contiguous(),
                                    signatures.to(torch.float32).contiguous(), k, k_valid)
     return ref.cosine_topk_ref(x, signatures, k, k_valid)
@@ -117,7 +129,7 @@ def bipartite_normalize(a: torch.Tensor, eps: float = 1e-8):
     d2 = torch.linalg.vector_norm(a, ord=1, dim=1)
     s1 = torch.rsqrt(torch.clamp_min(d1, eps))
     s2 = torch.rsqrt(torch.clamp_min(d2, eps))
-    if _on_cuda(a):
+    if _tier("bipartite_normalize", a, "triton"):
         return _scale.scale_apply(a, s1, s2), s1, s2
     return ref.scale_apply_ref(a, s1, s2), s1, s2
 
@@ -125,6 +137,7 @@ def bipartite_normalize(a: torch.Tensor, eps: float = 1e-8):
 def spmm(a: torch.Tensor, b: torch.Tensor, *, transpose: bool = False):
     """``A @ b`` (or ``A.T @ b``) for a coalesced COO tensor ``a``: gather of
     the RHS rows and a scatter-add over the output axis, O(nnz * r)."""
+    _obs.kernel_dispatch("spmm", "ref")
     idx = a.indices()
     rows, cols = (idx[1], idx[0]) if transpose else (idx[0], idx[1])
     n_out = a.shape[1] if transpose else a.shape[0]
@@ -134,6 +147,7 @@ def spmm(a: torch.Tensor, b: torch.Tensor, *, transpose: bool = False):
 def sddmm(x: torch.Tensor, y: torch.Tensor, indices: torch.Tensor):
     """Values of ``x @ y.T`` at ``indices (2, nnz)`` (a COO tensor's
     ``indices()``)."""
+    _obs.kernel_dispatch("sddmm", "ref")
     return ref.sddmm_ref(x, y, indices[0], indices[1])
 
 
@@ -149,7 +163,7 @@ def spmm_tiled(a: _spmm.BlockSparseMatrix, b: torch.Tensor, *,
                transpose: bool = False) -> torch.Tensor:
     """``A @ b`` (or ``A.T @ b``) with ``A`` pre-tiled, ``b (K, r)`` (or
     ``(M, r)``); any RHS width."""
-    if _on_cuda(b):
+    if _tier("spmm_tiled", b, transpose=transpose, scaled=a.has_scales):
         b = b.contiguous()
         return _spmm.spmm_t(a, b) if transpose else _spmm.spmm(a, b)
     return ref.spmm_tiled_ref(a, b, transpose=transpose)
@@ -159,7 +173,7 @@ def spmm_ata(a: _spmm.BlockSparseMatrix, x: torch.Tensor, *,
              with_gram: bool = False):
     """The normal-equations step ``z = A.T @ (A @ x)``; with ``with_gram``
     returns ``(z, z.T @ z)``, the Gram formed by the kernel on the card."""
-    if _on_cuda(x):
+    if _tier("spmm_ata", x, scaled=a.has_scales, with_gram=with_gram):
         return _spmm.spmm_ata(a, x.contiguous(), with_gram=with_gram)
     return ref.spmm_ata_ref(a, x, with_gram=with_gram)
 
@@ -180,7 +194,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"GQA heads mismatch: {q.shape[1]} % {k.shape[1]}")
     kw = dict(causal=causal, kv_len=kv_len, window=window, q_offset=q_offset,
               chunk_size=chunk_size)
-    if _on_cuda(q):
+    if _tier("flash_attention", q):
         return _flash.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
     return ref.flash_attention_ref(q, k, v, **kw)
 

@@ -26,7 +26,7 @@ import math
 import threading
 
 __all__ = ["Counter", "Gauge", "Histogram", "Registry", "get_registry",
-           "default_latency_buckets_us"]
+           "reset_metrics", "default_latency_buckets_us"]
 
 
 def default_latency_buckets_us(lo: float = 1.0, hi: float = 1e8,
@@ -197,6 +197,7 @@ class Registry:
     def __init__(self):
         self._metrics: dict[str, object] = {}
         self._lock = threading.Lock()
+        self.generation = 0          # bumped by reset(): cached metrics are stale
 
     def _get_or_create(self, name: str, cls, **kwargs):
         with self._lock:
@@ -227,6 +228,7 @@ class Registry:
     def reset(self) -> None:
         with self._lock:
             self._metrics.clear()
+            self.generation += 1
 
     def snapshot(self) -> dict:
         """JSON-able ``{name: metric.snapshot()}`` of every metric."""
@@ -240,3 +242,8 @@ _default = Registry()
 def get_registry() -> Registry:
     """The process-global default registry."""
     return _default
+
+
+def reset_metrics() -> None:
+    """Clear the default registry (tests; a fresh serve run)."""
+    _default.reset()

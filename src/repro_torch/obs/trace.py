@@ -33,13 +33,20 @@ import time
 import torch
 
 __all__ = ["Span", "Trace", "span", "event", "configure", "enabled",
-           "current_trace", "reset_trace", "TRACE_SCHEMA_VERSION"]
+           "current_trace", "reset_trace", "fence_count", "TRACE_SCHEMA_VERSION"]
 
 #: bumped when the JSONL row shape changes; validators check it.
 TRACE_SCHEMA_VERSION = 1
 
 _cfg = {"enabled": os.environ.get("REPRO_OBS", "") not in ("", "0")}
 _tls = threading.local()
+_fences = [0]    # torch.cuda.synchronize calls made by span exits
+
+
+def fence_count() -> int:
+    """The ``torch.cuda.synchronize`` calls span exits have made so far (the
+    analyzer's sync audit subtracts them from an ``_obs`` entry's syncs)."""
+    return _fences[0]
 
 
 def configure(enabled: bool | None = None) -> None:
@@ -154,6 +161,7 @@ class _ActiveSpan:
         if self._fenced is not None:
             for dev in _cuda_devices(self._fenced):
                 torch.cuda.synchronize(dev)
+                _fences[0] += 1
             self._fenced = None
         sp.t_end = time.perf_counter()
         if exc_type is not None:

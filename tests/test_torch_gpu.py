@@ -764,6 +764,14 @@ def _example_runs_on_the_card(name):
         assert 0.0 <= out["fit_nmi"] <= 1.0, out
 
 
+def _strict_audit_on_the_card():
+    """``python -m repro_torch.analysis --strict`` on the card: the lint, the
+    entry points' audit and the shared-memory audit report no finding."""
+    from repro_torch.analysis import cli
+
+    assert cli.main(["--strict"]) == 0
+
+
 @pytest.mark.gpu
 def test_slice9_on_the_card_matches_the_cpu_path():
     _card()
@@ -777,3 +785,4 @@ def test_slice9_on_the_card_matches_the_cpu_path():
             _lamc_nmtf_on_the_card_matches_the_cpu_path(kind, nmtf_iters)
     for name in ("torch_quickstart", "torch_text_coclustering"):
         _example_runs_on_the_card(name)
+    _strict_audit_on_the_card()

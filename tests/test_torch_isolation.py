@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from repro_torch import checkpoint, interop, streaming
+from repro_torch.analysis import dispatch_audit
 from repro_torch.configs import reduced
 from repro_torch.core import baselines, distributed, kmeans, lamc, spectral
 from repro_torch.core.nmtf import nmtf
@@ -18,12 +19,17 @@ from repro_torch.models import build_model
 from repro_torch.runtime import fault_tolerance
 
 ROOT = Path(__file__).resolve().parents[1]
-# The out-of-core fit's files are checked inside one item, not as cases of
+# The files of the later slices (and two of the kernels' files, to make room
+# for the analyzer's test items) are checked inside one item, not as cases of
 # their own: each case moves pytest-xdist's schedule (ROADMAP.md queue 3,
 # "The count rule").
 GROUPED_FILES = [ROOT / "src" / "repro_torch" / name for name in
                  ("runtime/__init__.py", "runtime/fault_tolerance.py", "streaming/fit.py",
-                  "runtime/shardings.py", "launch/mesh.py", "core/distributed.py")]
+                  "runtime/shardings.py", "launch/mesh.py", "core/distributed.py",
+                  "analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
+                  "analysis/ast_lint.py", "analysis/smem.py", "analysis/dispatch_audit.py",
+                  "analysis/entry_points.py", "analysis/cli.py", "obs/__main__.py",
+                  "kernels/_build.py", "obs/trace.py")]
 # Spawned ranks import this helper, so it must stand alone too.
 RANK_HELPERS = [ROOT / "tests" / "torch_dist.py"]
 PORT_FILES = sorted(set((ROOT / "src" / "repro_torch").rglob("*.py")) - set(GROUPED_FILES)) + [
@@ -53,7 +59,9 @@ def test_port_file_list_is_complete():
             "metrics.py", "trace.py", "export.py", "transformer.py", "attention.py",
             "flash_attention.py", "layers.py", "base.py", "qwen3_4b.py", "nmtf.py",
             "baselines.py", "fit.py", "fault_tolerance.py", "distributed.py",
-            "shardings.py", "mesh.py"} <= names
+            "shardings.py", "mesh.py", "findings.py", "ast_lint.py", "smem.py",
+            "dispatch_audit.py", "entry_points.py", "cli.py", "__main__.py",
+            "_build.py"} <= names
 
 
 def _example_main(name):
@@ -109,12 +117,13 @@ def test_registry_load_defaults_to_the_card(monkeypatch, tmp_path):
 
 
 def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
-    """The two example scripts, the out-of-core fit's and the distributed
-    driver's modules and the spawned ranks' helper import neither JAX nor
-    the reference, and the NMTF atom, the baselines, both examples'
-    ``main``, the out-of-core fit, the launcher's demo fit, the meshes, the
-    distributed driver and the elastic restore ask for the card by default
-    (one item: the collected count is kept, ROADMAP.md queue 3)."""
+    """The two example scripts, the out-of-core fit's, the distributed
+    fit's and the analyzer's modules (and the other grouped files) and the
+    spawned ranks' helper import neither JAX nor the reference, and the NMTF
+    atom, the baselines, both examples' ``main``, the out-of-core fit, the
+    launcher's demo fit, the meshes, the distributed driver, the elastic
+    restore and the analyzer's audit ask for the card by default (one item:
+    the collected count is kept, ROADMAP.md queue 3)."""
     assert all(path.is_file() for path in GROUPED_FILES + RANK_HELPERS)
     for path in ([ROOT / "examples" / f"{name}.py" for name in EXAMPLES] + GROUPED_FILES
                  + RANK_HELPERS):
@@ -137,6 +146,7 @@ def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
                  lambda: distributed.distributed_lamc(
                      {"data": 1, "model": 1}, a, lamc.LAMCConfig(2, 2),
                      lamc.partition.PartitionPlan(40, 30, 2, 1, 20, 30, 1)),
-                 lambda: fault_tolerance.elastic_restore(str(tmp_path), 0, {}, None, {})):
+                 lambda: fault_tolerance.elastic_restore(str(tmp_path), 0, {}, None, {}),
+                 lambda: dispatch_audit.audit_entry_points(["cosine_assign"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
