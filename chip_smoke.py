@@ -163,8 +163,9 @@ Phases, each printing one JSON line:
 17. ``kernel`` (flash): the flash-attention kernel at the served prefill's
    shape (B = 4, Hq = 32, Hkv = 8, S = 2048, Dh = 128, bf16), the same in
    float32, Dh = 64 (15/5 heads), Dh = 256, a ragged S = 1000, non-causal
-   and recurrentgemma-2b's windowed local attention (10/1 heads, Dh = 256,
-   window 2,048, S = 4,096), against its plain version, each through the
+   recurrentgemma-2b's windowed local attention (10/1 heads, Dh = 256,
+   window 2,048, S = 4,096) and the same at its served prefill (B = 4, a
+   ragged S = 3,000), against its plain version, each through the
    kernel its dtype must take (``wgmma`` for bf16, ``f32_pipe`` for
    float32), then timed (CUDA events) beside its bound, the plain version
    and ``scaled_dot_product_attention`` (a yardstick only: the port never
@@ -177,6 +178,19 @@ Phases, each printing one JSON line:
    (36 layers, random weights from ``--seed``), batch 4, prompt 2048, 32
    tokens: prefill ms, decode tokens/s, peak memory, one flash launch per
    layer, every logit finite.
+19a. ``parity_lm_rg``: recurrentgemma-2b at full width (d = 2,560, 10/1
+   heads, Dh = 256, window 2,048) cut to 5 layers (one (rglru, rglru, local)
+   unit and two tail RG-LRU blocks, the reduced config's layout), B = 1, a
+   2,100-token prompt, 8 tokens, float32 compute, card against CPU as in
+   ``parity_lm``: one flash launch (the float32 pipe in window mode). The
+   prompt passes the window and is no multiple of it, so the prefill cuts
+   the local cache, ``grow_cache`` rolls it by 52 and decode evicts slots
+   52-59.
+19b. ``lm_recurrentgemma_2b_serve``: ``launch.serve.generate`` of the full
+   recurrentgemma-2b (26 layers: 8 units and 2 tail RG-LRU blocks, seeded
+   random weights), batch 4, prompt 3,000, 32 tokens, bf16: as phase 19,
+   with the analytic and the built parameter counts; one flash launch per
+   local layer (8), no other kernel.
 20. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -286,16 +300,18 @@ KMEANS_EDGE_SHAPES = [(2, 3000, 1, 1, True), (3, 1, 5, 16, True), (3, 33, 5, 16,
                       (2, 300, 128, 300, True)]
 
 # Flash attention: (name, B, Hq, Hkv, S, Dh, dtype, causal, window); the
-# first is the served prefill of lm_qwen3_4b_serve, the last
+# first is the served prefill of lm_qwen3_4b_serve, the last two
 # recurrentgemma-2b's local attention at full width (10/1 heads, Dh = 256,
-# a 2,048-key window) over a 4,096-token prompt.
+# a 2,048-key window) over a 4,096-token prompt and at the served prefill of
+# lm_recurrentgemma_2b_serve (window and ragged S together).
 FLASH_SHAPES = [("served", 4, 32, 8, 2048, 128, "bf16", True, 0),
                 ("served_f32", 4, 32, 8, 2048, 128, "f32", True, 0),
                 ("dh64_15_5", 4, 15, 5, 2048, 64, "bf16", True, 0),
                 ("dh256", 4, 8, 1, 2048, 256, "bf16", True, 0),
                 ("ragged_s1000", 4, 32, 8, 1000, 128, "bf16", True, 0),
                 ("noncausal", 4, 32, 8, 2048, 128, "bf16", False, 0),
-                ("rg2b_local", 1, 10, 1, 4096, 256, "bf16", True, 2048)]
+                ("rg2b_local", 1, 10, 1, 4096, 256, "bf16", True, 2048),
+                ("rg2b_served", 4, 10, 1, 3000, 256, "bf16", True, 2048)]
 # The kernel each dtype must take: bf16 at Dh 64, 128 and 256 (aligned
 # tensors) the wgmma kernel, float32 the float32 pipe.
 FLASH_ROUTE = {"bf16": "wgmma", "f32": "f32_pipe"}
@@ -307,6 +323,12 @@ FLASH_TOL = {"f32": (1e-5, 0.0), "bf16": (2e-2, 2e-2)}
 # The LM cell: qwen3-4b at full width and depth, batch 4, prompt 2048, 32 tokens.
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-4b", 4, 2048, 32
 LM_PARITY = dict(layers=2, batch=1, prompt=256, gen=4, logit_rtol=1e-3)
+# The hybrid LM cell: recurrentgemma-2b at full width and depth, batch 4, a
+# prompt of 3,000 (past the window and no multiple of it, so grow_cache's
+# roll moves the local caches), 32 tokens; its parity run cut to the reduced
+# config's 5 layers over 2,100 tokens (the roll moves them by 52).
+LM_RG_ARCH, LM_RG_BATCH, LM_RG_PROMPT, LM_RG_GEN = "recurrentgemma-2b", 4, 3000, 32
+LM_RG_PARITY = dict(layers=5, batch=1, prompt=2100, gen=8, logit_rtol=1e-3)
 
 
 class CheckFailed(Exception):
@@ -2627,11 +2649,19 @@ def phase_kernels_flash(gen) -> dict:
     return {"flash_attention": row}
 
 
-def phase_parity_lm(seed: int) -> None:
-    """qwen3-4b at full width, cut to LM_PARITY["layers"] layers, float32
-    compute, on the card and on the CPU with the same weights: prefill
-    logits within LM_PARITY["logit_rtol"] of max|logit|, the same greedy
-    tokens."""
+def _attention_layers(cfg) -> int:
+    """The layers that launch the flash kernel in a prefill."""
+    from repro_torch.models import transformer
+
+    return sum(kind != "rglru" for kind in transformer.block_kinds(cfg))
+
+
+def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
+                    phase: str = "parity_lm") -> None:
+    """``arch`` at full width, cut to ``spec["layers"]`` layers, float32
+    compute, on the card and on the CPU with the same weights: one flash
+    launch per attention layer, prefill logits within ``spec["logit_rtol"]``
+    of max|logit|, the same greedy tokens."""
     import copy
     import dataclasses
 
@@ -2642,13 +2672,13 @@ def phase_parity_lm(seed: int) -> None:
     from repro_torch.launch import serve
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_arch(LM_ARCH), n_layers=LM_PARITY["layers"])
+    cfg = dataclasses.replace(get_arch(arch), n_layers=spec["layers"])
     host = build_model(cfg, dtype=torch.float32, device="cpu")
     card = build_model(cfg, dtype=torch.float32, device="cuda")
     params_host = host.init(seed)
     params_card = copy.deepcopy(params_host).to("cuda")     # Module.to moves in place
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
-        0, cfg.vocab_size, (LM_PARITY["batch"], LM_PARITY["prompt"])))
+        0, cfg.vocab_size, (spec["batch"], spec["prompt"])))
     ops.reset_launch_counts()
     logits_card, _ = card.prefill(params_card, prompts.cuda())
     launches = ops.launch_counts()["flash_attention"]
@@ -2656,54 +2686,58 @@ def phase_parity_lm(seed: int) -> None:
     torch.cuda.synchronize()
     scale = logits_host.abs().max().item()
     err = (logits_card.cpu() - logits_host).abs().max().item()
-    out_card = serve._generate(card, params_card, prompts.cuda(), LM_PARITY["gen"])
-    out_host = serve._generate(host, params_host, prompts, LM_PARITY["gen"])
+    out_card = serve._generate(card, params_card, prompts.cuda(), spec["gen"])
+    out_host = serve._generate(host, params_host, prompts, spec["gen"])
     equal = bool((out_card["tokens"] == out_host["tokens"]).all())
-    emit("parity_lm", arch=LM_ARCH, layers=cfg.n_layers, d_model=cfg.d_model,
-         batch=LM_PARITY["batch"], prompt=LM_PARITY["prompt"], compute="float32",
+    want = _attention_layers(cfg)
+    emit(phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+         batch=spec["batch"], prompt=spec["prompt"], compute="float32",
          max_abs_logit_err=err, max_abs_logit=scale, flash_launches=launches,
          tokens_card=out_card["tokens"].tolist(), tokens_cpu=out_host["tokens"].tolist())
-    check(launches == cfg.n_layers, f"parity_lm: {launches} flash launches, expected "
-                                    f"{cfg.n_layers}")
-    check(err <= LM_PARITY["logit_rtol"] * scale,
-          f"parity_lm: logits differ by {err} (> {LM_PARITY['logit_rtol']} x {scale})")
-    check(equal, "parity_lm: greedy tokens on the card differ from the CPU's")
-    check(out_card["logits_finite"] and out_host["logits_finite"], "parity_lm: logits")
+    check(launches == want, f"{phase}: {launches} flash launches, expected {want}")
+    check(err <= spec["logit_rtol"] * scale,
+          f"{phase}: logits differ by {err} (> {spec['logit_rtol']} x {scale})")
+    check(equal, f"{phase}: greedy tokens on the card differ from the CPU's")
+    check(out_card["logits_finite"] and out_host["logits_finite"], f"{phase}: logits")
     del params_card
     torch.cuda.empty_cache()
 
 
-def phase_lm_serve(seed: int, smi: str) -> dict:
-    """The LM cell: full qwen3-4b served through ``launch.serve.generate``."""
+def phase_lm_serve(seed: int, smi: str, arch: str = LM_ARCH, batch: int = LM_BATCH,
+                   prompt: int = LM_PROMPT, gen: int = LM_GEN,
+                   cell: str = "lm_qwen3_4b_serve") -> dict:
+    """An LM cell: the full ``arch`` served through ``launch.serve.generate``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
+    from repro_torch.models import transformer
 
-    cfg = get_arch(LM_ARCH)
+    cfg = get_arch(arch)
+    built = sum(p.numel() for p in transformer.Transformer(cfg, device="meta").parameters())
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.generate(arch=LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen_len=LM_GEN,
+    out = serve.generate(arch=arch, batch=batch, prompt_len=prompt, gen_len=gen,
                          use_reduced=False, seed=seed)
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    emit("lm_qwen3_4b_serve", cell="lm_qwen3_4b_serve", nvidia_smi=smi, arch=LM_ARCH,
-         layers=cfg.n_layers, params=cfg.param_count(), batch=LM_BATCH, prompt=LM_PROMPT,
-         gen=LM_GEN, compute="bfloat16", weights="float32 masters + bf16 copy",
+    emit(cell, cell=cell, nvidia_smi=smi, arch=arch,
+         layers=cfg.n_layers, params=cfg.param_count(), params_built=built, batch=batch,
+         prompt=prompt, gen=gen, compute="bfloat16", weights="float32 masters + bf16 copy",
          prefill_ms=out["prefill_s"] * 1e3, decode_s=out["decode_s"],
-         decode_ms_per_step=out["decode_s"] * 1e3 / (LM_GEN - 1),
+         decode_ms_per_step=out["decode_s"] * 1e3 / (gen - 1),
          decode_tokens_per_s=out["tokens_per_s"], wall_s=wall,
          max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
          logits_finite=out["logits_finite"], launches=counts,
          sample_tokens=out["tokens"][0][:8].tolist())
     want = {name: 0 for name in counts}
-    want["flash_attention"] = cfg.n_layers        # one prefill: one launch per layer
-    check(counts == want, f"launch counts {counts}, expected {want}")
-    check(out["tokens"].shape == (LM_BATCH, LM_GEN), f"tokens {out['tokens'].shape}")
-    check(out["logits_finite"], "lm_qwen3_4b_serve: a logit is not finite")
+    want["flash_attention"] = _attention_layers(cfg)   # one prefill: one a layer
+    check(counts == want, f"{cell}: launch counts {counts}, expected {want}")
+    check(out["tokens"].shape == (batch, gen), f"{cell}: tokens {out['tokens'].shape}")
+    check(out["logits_finite"], f"{cell}: a logit is not finite")
     torch.cuda.empty_cache()
     return counts
 
@@ -2794,12 +2828,16 @@ def main() -> int:
         rows.update(phase_kernels_flash(gen))
         phase_parity_lm(args.seed)
         lm_counts = phase_lm_serve(args.seed, smi)
+        phase_parity_lm(args.seed, LM_RG_ARCH, LM_RG_PARITY, "parity_lm_rg")
+        lm_rg_counts = phase_lm_serve(args.seed, smi, LM_RG_ARCH, LM_RG_BATCH, LM_RG_PROMPT,
+                                      LM_RG_GEN, "lm_recurrentgemma_2b_serve")
     except Exception:  # every failure ends the run with a nonzero exit
         traceback.print_exc()
         return 1
     rows.update(sparse_rows)
     cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts,
              "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts,
+             "lm_recurrentgemma_2b_serve": lm_rg_counts,
              "lamc_dense_131k_nmtf": nmtf_counts, "baselines_131k": baseline_counts,
              "examples": example_counts, "lamc_stream_131k": stream_counts,
              "lamc_stream_1.5m_ooc": ooc_counts, "lamc_dense_131k_dist": dist_counts,

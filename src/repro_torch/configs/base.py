@@ -146,12 +146,13 @@ _ARCH_MODULES = [
     "smollm_360m",
     "minicpm_2b",
     "qwen3_4b",
+    "recurrentgemma_2b",
 ]
 
 #: The reference's other registered architectures: their blocks (MoE,
-#: RG-LRU, xLSTM, encoder-decoder, M-RoPE) or workloads are not ported yet.
-NOT_PORTED = ("llama4-scout-17b-a16e", "deepseek-moe-16b", "recurrentgemma-2b",
-              "qwen2-vl-72b", "xlstm-125m", "whisper-medium", "lamc-coclustering")
+#: xLSTM, encoder-decoder, M-RoPE) or workloads are not ported yet.
+NOT_PORTED = ("llama4-scout-17b-a16e", "deepseek-moe-16b", "qwen2-vl-72b", "xlstm-125m",
+              "whisper-medium", "lamc-coclustering")
 
 
 def register(cfg: ArchConfig, reduced_cfg: ArchConfig) -> ArchConfig:

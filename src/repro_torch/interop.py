@@ -173,17 +173,27 @@ def _norm_leaves(prefix: str, tree: Mapping, index=None) -> dict:
     return {f"{prefix}.{leaf}": take(tree[leaf]) for leaf in ("scale", "bias") if leaf in tree}
 
 
-def _block_leaves(prefix: str, tree: Mapping, index=None) -> dict:
-    """One ``attn`` block's leaves (``index`` picks it from a stacked unit)."""
+def _block_leaves(prefix: str, kind: str, tree: Mapping, index=None) -> dict:
+    """One block's leaves (``index`` picks it from a stacked unit): ``ln1``,
+    ``attn`` (``attn``, ``local``) or ``rec`` (``rglru``), ``ln2``, ``mlp``."""
     take = (lambda a: a) if index is None else (lambda a: a[index])
-    attn = tree["attn"]
     out = {**_norm_leaves(f"{prefix}.ln1", tree["ln1"], index),
            **_norm_leaves(f"{prefix}.ln2", tree["ln2"], index)}
-    for name in ("wq", "wk", "wv", "wo"):
-        out[f"{prefix}.attn.{name}"] = take(attn[name])
-    for name in ("q_norm", "k_norm"):
-        if name in attn:
-            out.update(_norm_leaves(f"{prefix}.attn.{name}", attn[name], index))
+    if kind == "rglru":
+        rec = tree["rec"]
+        for name in ("w_x", "w_gate", "w_out"):
+            out[f"{prefix}.rec.{name}"] = take(rec[name]["w"])
+        for name in ("w_a", "b_a", "w_i", "b_i"):
+            out[f"{prefix}.rec.gates.{name}"] = take(rec["gates"][name])
+        out[f"{prefix}.rec.conv"] = take(rec["conv"])
+        out[f"{prefix}.rec.lambda"] = take(rec["lambda"])
+    else:
+        attn = tree["attn"]
+        for name in ("wq", "wk", "wv", "wo"):
+            out[f"{prefix}.attn.{name}"] = take(attn[name])
+        for name in ("q_norm", "k_norm"):
+            if name in attn:
+                out.update(_norm_leaves(f"{prefix}.attn.{name}", attn[name], index))
     for name in ("w_in", "w_gate", "w_out"):
         out[f"{prefix}.mlp.{name}"] = take(tree["mlp"][name]["w"])
     return out
@@ -192,11 +202,13 @@ def _block_leaves(prefix: str, tree: Mapping, index=None) -> dict:
 def lm_params_from_numpy(cfg, params_np: Mapping, device: str | torch.device = "cuda",
                          param_dtype=torch.float32) -> transformer.Transformer:
     """The reference's ``model.init(key)`` tree (leaves as numpy arrays) as
-    the port's weights: ``embed.table``, ``final_norm``, the ``units``
-    stacked along a leading ``n_units`` axis (split into the blocks), the
+    the port's weights: ``embed.table``, ``final_norm``, the ``units`` (one
+    subtree per pattern position, stacked along a leading ``n_units`` axis;
+    block ``u * len(pattern) + j`` is position ``j`` of unit ``u``), the
     ``tail`` blocks after them and the optional ``lm_head``. Matrices are
-    stored in ``param_dtype``, norm scales in float32; every leaf must be
-    used and every weight given."""
+    stored in ``param_dtype``, the leaves the reference keeps in float32
+    (``transformer.keeps_float32``) in float32; every leaf must be used and
+    every weight given."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
     n_units, tail = transformer.pattern_layout(cfg)
@@ -204,14 +216,17 @@ def lm_params_from_numpy(cfg, params_np: Mapping, device: str | torch.device = "
               **_norm_leaves("final_norm", params_np["final_norm"])}
     if "lm_head" in params_np:
         leaves["lm_head"] = params_np["lm_head"]["w"]
-    for i in range(n_units):
-        leaves.update(_block_leaves(f"blocks.{i}", params_np["units"]["0"], i))
-    for j, blk in enumerate(params_np.get("tail", [])[:len(tail)]):
-        leaves.update(_block_leaves(f"blocks.{n_units + j}", blk))
+    pattern = cfg.block_pattern
+    for u in range(n_units):
+        for j, kind in enumerate(pattern):
+            leaves.update(_block_leaves(f"blocks.{u * len(pattern) + j}", kind,
+                                        params_np["units"][str(j)], u))
+    for j, (kind, blk) in enumerate(zip(tail, params_np.get("tail", []))):
+        leaves.update(_block_leaves(f"blocks.{n_units * len(pattern) + j}", kind, blk))
     params = transformer.Transformer(cfg, device="meta")
     state = {}
     for name, value in leaves.items():
-        dtype = torch.float32 if transformer._is_norm(name) else param_dtype
+        dtype = torch.float32 if transformer.keeps_float32(name) else param_dtype
         state[name] = torch.as_tensor(np.array(value, dtype=np.float32), device=dev).to(dtype)
     params.load_state_dict(state, strict=True, assign=True)
     return params

@@ -2,8 +2,9 @@
 prefill and a few decode steps.
 
 ``python -m repro_torch.launch.profile_serve --full-config`` profiles the full
-qwen3-4b on the card (batch 4, prompt 2048) after one untimed warm-up pass;
-``--device cpu`` profiles a reduced config on the CPU. For each phase it
+qwen3-4b on the card (batch 4, prompt 2048) after one untimed warm-up pass
+(``--arch recurrentgemma-2b --prompt-len 3000`` the hybrid); ``--device
+cpu`` profiles a reduced config on the CPU. For each phase it
 prints the host wall time, the device time (the sum of the kernels'
 self time, CUDA only), the device's idle share ``1 - device / wall``, and
 the operators and kernels that take the most device time. The profiler

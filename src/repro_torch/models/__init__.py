@@ -1,5 +1,6 @@
-"""The LM substrate's dense-attention model: layers, attention (prefill through
-the flash kernel), the transformer and the public ``build_model``."""
+"""The LM substrate's model: layers, attention (prefill through the flash
+kernel), the RG-LRU block, the block-pattern transformer (dense and hybrid)
+and the public ``build_model``."""
 
 from .model import Model, build_model
 

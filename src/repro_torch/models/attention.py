@@ -1,12 +1,18 @@
-"""Attention: the prefill path through the flash kernel, the decode path over a
-KV cache, the sliding-window variant; GQA throughout.
+"""Attention: the prefill path through the flash kernel (global causal, or a
+sliding window for ``local`` blocks), the decode path over a KV cache; GQA
+throughout.
 
 Mirrors the reference's ``src/repro/models/attention.py``. There the chunked
 path is a pure-JAX twin of the Pallas flash kernel; here
 ``chunked_causal_attention`` dispatches through ``kernels.ops.flash_attention``:
-a CUDA tensor launches the hand-written kernel, a CPU tensor takes its plain
-version, which walks the same KV chunks as the reference. Decode attention
-has no kernel in the reference and stays plain PyTorch.
+a CUDA tensor launches the hand-written kernel (its ``window`` mode for
+``local`` blocks), a CPU tensor takes its plain version, which walks the same
+KV chunks as the reference. Decode attention has no kernel in the reference
+and stays plain PyTorch: over the first ``cache_len`` slots of a global
+layer's cache, or over the valid slots of a ``local`` layer's rolling buffer
+of ``window`` slots, where position ``p`` sits at slot ``p % window``
+(``transformer.grow_cache`` rolls the prefill's keys into that order; RoPE
+carries the absolute positions, so the slots' order does not matter).
 
 Shapes: q (B, Hq, Sq, Dh); k, v (B, Hkv, Skv, Dh); GQA expands Hkv -> Hq
 (Hq % Hkv == 0).
@@ -18,8 +24,7 @@ import torch
 
 from ..kernels import ops
 
-__all__ = ["chunked_causal_attention", "decode_attention",
-           "sliding_window_mask_attention"]
+__all__ = ["chunked_causal_attention", "decode_attention"]
 
 _NEG_INF = -1e30
 
@@ -68,11 +73,3 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v_cache.to(torch.float32))
     return out.to(q.dtype)
-
-
-def sliding_window_mask_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                                  window: int, chunk_size: int = 1024,
-                                  q_offset: int = 0) -> torch.Tensor:
-    """Chunked attention with a sliding window (local-attention blocks)."""
-    return chunked_causal_attention(q, k, v, chunk_size=chunk_size, window=window,
-                                    q_offset=q_offset)

@@ -9,7 +9,9 @@ reference's do:
   dtype; their scale and bias are read in float32;
 * ``embed`` gathers rows of a table already in the compute dtype (the
   reference casts the table, then gathers);
-* ``_rotate`` casts cos/sin to ``x.dtype`` before it multiplies.
+* ``_rotate`` casts cos/sin to ``x.dtype`` before it multiplies;
+* ``gelu`` is ``jax.nn.gelu``'s tanh formula with its constants in
+  ``x.dtype``, op by op (ATen's fused bf16 GELU rounds elsewhere).
 
 Weights are stored in the model's parameter dtype (float32 masters); the
 matrices are cast to the compute dtype once, when the compute copy is made
@@ -19,11 +21,13 @@ cast at each use gives.
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-__all__ = ["Norm", "MLP", "dense", "rmsnorm", "layernorm", "norm_apply", "embed", "mlp",
-           "rotary_angles", "apply_rope", "apply_rope_half"]
+__all__ = ["Norm", "MLP", "dense", "rmsnorm", "layernorm", "norm_apply", "embed", "gelu",
+           "mlp", "rotary_angles", "apply_rope", "apply_rope_half"]
 
 
 def _weight(shape, std: float, dtype, device, gen) -> nn.Parameter:
@@ -92,10 +96,17 @@ def embed(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     return table.to(dtype)[tokens]
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of GELU, as ``jax.nn.gelu`` computes it."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=torch.float32).to(x.dtype)
+    k = torch.tensor(0.044715, dtype=torch.float32).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
+
+
 def mlp(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     h = dense(p.w_in, x)
     g = dense(p.w_gate, x)
-    g = nn.functional.silu(g) if act == "silu" else nn.functional.gelu(g, approximate="tanh")
+    g = nn.functional.silu(g) if act == "silu" else gelu(g)
     return dense(p.w_out, h * g)
 
 

@@ -1,25 +1,36 @@
-"""The block-pattern transformer for dense attention blocks: prefill, decode
-with KV caches, and the weights as ``nn.Module``s.
+"""The block-pattern transformer: prefill, decode with caches, and the
+weights as ``nn.Module``s.
 
-Mirrors the reference's ``src/repro/models/transformer.py`` for configs whose
-``block_pattern`` is ``("attn",)`` with a dense gated FFN (qwen3, smollm,
-minicpm, chatglm3). The reference stacks full units along a leading axis
-and applies them under ``lax.scan``; here the blocks are an
-``nn.ModuleList`` and the scan is a loop. MoE, RG-LRU, xLSTM, local
-attention, encoder-decoder, M-RoPE and leading dense layers raise
-``NotImplementedError`` (ROADMAP queue 1, item 16).
+Mirrors the reference's ``src/repro/models/transformer.py`` for patterns
+whose kinds are ``attn`` (global causal attention), ``local`` (sliding-window
+attention over ``cfg.window`` keys) and ``rglru`` (the RG-LRU recurrent block
+of ``rglru.py``), each followed by a dense gated FFN: the dense archs
+(qwen3, smollm, minicpm, chatglm3; pattern ``("attn",)``) and
+recurrentgemma-2b (``("rglru", "rglru", "local")``).
+
+Layout: ``pattern_layout`` gives ``n_units`` full units of the pattern and
+the tail kinds. Block ``u * len(pattern) + j`` of ``Transformer.blocks`` is
+pattern position ``j`` of unit ``u``; the tail blocks come after the units.
+The reference stacks the units along a leading axis and applies them under
+``lax.scan``; here the blocks are an ``nn.ModuleList`` and the scan is a
+loop. MoE, xLSTM, encoder-decoder, M-RoPE, frontends and leading dense
+layers raise ``NotImplementedError`` (ROADMAP queue 1, item 16).
 
 Entry points (same weights):
     ``forward_full``   — pre-head hidden states for a whole sequence
-    ``prefill``        — forward_full + per-layer KV caches, last-token logits
-    ``decode_step``    — one token through the cached keys and values
+    ``prefill``        — forward_full + per-layer caches, last-token logits
+    ``decode_step``    — one token through the cached states
 
-Caches keep the reference's tree: ``{"units": [{"k", "v"}]}`` with each leaf
-stacked over the layers, ``(n_layers, B, Hkv, S, Dh)``; an int8 cache adds
-per-(token, head) float32 scales ``"ks"``, ``"vs"`` ``(n_layers, B, Hkv, S)``.
-``decode_step`` writes the new token's entries into the cache in place (the
-reference writes a functional ``where(iota == pos)`` copy of the same values)
-and returns the same dict.
+Caches keep the reference's tree: ``{"units": [one entry per pattern
+position, each leaf stacked over the units], "tail_<i>": entry}``. An
+attention entry is ``{"k", "v"}`` ``(B, Hkv, S, Dh)`` (an int8 cache adds
+per-(token, head) float32 scales ``"ks"``, ``"vs"`` ``(B, Hkv, S)``); a
+``local`` entry holds at most ``window`` positions, as a rolling buffer in
+which position ``p`` sits at slot ``p % window``; an ``rglru`` entry is
+``{"h" (B, d_rnn) float32, "conv" (B, 3, d_rnn)}``. ``decode_step`` writes
+the new token's keys, values and recurrent states into the cache in place
+(the reference writes functional copies of the same values) and returns
+the same dict.
 """
 
 from __future__ import annotations
@@ -28,13 +39,14 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from . import attention, layers
+from . import attention, layers, rglru
 
 __all__ = ["Transformer", "Block", "Attention", "check_supported", "pattern_layout",
-           "init_params", "forward_full", "logits_from_hidden", "prefill",
-           "init_decode_cache", "grow_cache", "decode_step"]
+           "block_kinds", "keeps_float32", "init_params", "forward_full",
+           "logits_from_hidden", "prefill", "init_decode_cache", "grow_cache", "decode_step"]
 
 _ITEM = "ROADMAP queue 1, item 16"
+_KINDS = ("attn", "local", "rglru")
 
 
 def pattern_layout(cfg: ArchConfig) -> tuple[int, tuple[str, ...]]:
@@ -46,11 +58,23 @@ def pattern_layout(cfg: ArchConfig) -> tuple[int, tuple[str, ...]]:
     return n_units, pat[:tail_len]
 
 
+def block_kinds(cfg: ArchConfig) -> list[str]:
+    """The kind of each block of ``Transformer.blocks``: the units' pattern
+    positions in order, then the tail."""
+    n_units, tail = pattern_layout(cfg)
+    return list(cfg.block_pattern) * n_units + list(tail)
+
+
+def _d_rnn(cfg: ArchConfig) -> int:
+    return cfg.d_model       # the reference's lru width (RG-2B: 2560 = d_model)
+
+
 def check_supported(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not run yet."""
     missing = []
-    if tuple(cfg.block_pattern) != ("attn",):
-        missing.append(f"block pattern {cfg.block_pattern}")
+    other = sorted(set(cfg.block_pattern) - set(_KINDS))
+    if other:
+        missing.append(f"{', '.join(other)} blocks")
     if cfg.is_moe:
         missing.append("MoE blocks")
     if cfg.n_dense_layers > 0:
@@ -66,7 +90,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet ({_ITEM}); "
-            f"the port runs dense ('attn',) blocks")
+            f"the port runs {', '.join(_KINDS)} blocks with a dense FFN")
 
 
 class Attention(nn.Module):
@@ -87,12 +111,19 @@ class Attention(nn.Module):
 
 
 class Block(nn.Module):
-    """One ``attn`` block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One block of ``kind``: ``ln1``, ``attn`` (``attn``, ``local``) or ``rec``
+    (``rglru``), ``ln2``, ``mlp``."""
 
-    def __init__(self, cfg: ArchConfig, *, dtype=torch.float32, device=None, gen=None):
+    def __init__(self, cfg: ArchConfig, kind: str, *, dtype=torch.float32, device=None,
+                 gen=None):
         super().__init__()
+        self.kind = kind
         self.ln1 = layers.Norm(cfg.norm, cfg.d_model, device=device)
-        self.attn = Attention(cfg, dtype=dtype, device=device, gen=gen)
+        if kind == "rglru":
+            self.rec = rglru.RecurrentBlock(cfg.d_model, _d_rnn(cfg), dtype=dtype,
+                                            device=device, gen=gen)
+        else:
+            self.attn = Attention(cfg, dtype=dtype, device=device, gen=gen)
         self.ln2 = layers.Norm(cfg.norm, cfg.d_model, device=device)
         self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device, gen=gen)
 
@@ -101,11 +132,13 @@ class Transformer(nn.Module):
     """The weights: ``embed (vocab, d)``, ``blocks``, ``final_norm`` and, for
     untied embeddings, ``lm_head (d, vocab)``.
 
-    The matrices are stored in the parameter dtype (float32 masters); norm
-    scales stay float32, as the reference keeps them. ``compute(dtype)``
-    returns the copy the forward passes read: the matrices cast to ``dtype``
-    once and kept (the reference casts them at every use, which gives the
-    same bits), the norms shared with the masters. The masters are read only
+    The matrices are stored in the parameter dtype (float32 masters); the
+    leaves the reference reads in float32 (norm scales and biases, the
+    RG-LRU's gates and ``lambda``: ``keeps_float32``) stay float32.
+    ``compute(dtype)`` returns the copy the forward passes read: the other
+    matrices cast to ``dtype`` once and kept (the reference casts them at
+    every use, which gives the same bits), the float32 leaves shared with
+    the masters. The masters are read only
     here (no training path), so the copy never goes stale; moving the module
     drops it.
     """
@@ -116,20 +149,20 @@ class Transformer(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         self.embed = layers._weight((cfg.vocab_size, d), 0.02, dtype, device, gen)
-        self.blocks = nn.ModuleList(Block(cfg, dtype=dtype, device=device, gen=gen)
-                                    for _ in range(cfg.n_layers))
+        self.blocks = nn.ModuleList(Block(cfg, kind, dtype=dtype, device=device, gen=gen)
+                                    for kind in block_kinds(cfg))
         self.final_norm = layers.Norm(cfg.norm, d, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = layers._weight((d, cfg.vocab_size), d ** -0.5, dtype, device, gen)
         self._compute: dict[torch.dtype, Transformer] = {}
 
     def compute(self, dtype: torch.dtype) -> "Transformer":
-        """These weights with every matrix in ``dtype`` (norms shared)."""
-        if all(p.dtype == dtype for n, p in self.named_parameters() if not _is_norm(n)):
+        """These weights with every matrix in ``dtype`` (float32 leaves shared)."""
+        if all(p.dtype == dtype for n, p in self.named_parameters() if not keeps_float32(n)):
             return self
         if dtype not in self._compute:
             copy = Transformer(self.cfg, device="meta")
-            state = {name: t if _is_norm(name) else t.to(dtype)
+            state = {name: t if keeps_float32(name) else t.to(dtype)
                      for name, t in self.state_dict().items()}
             copy.load_state_dict(state, assign=True)
             self._compute[dtype] = copy
@@ -140,9 +173,14 @@ class Transformer(nn.Module):
         return super()._apply(fn, recurse)
 
 
-def _is_norm(name: str) -> bool:
-    return name.endswith(("ln1.scale", "ln2.scale", "ln1.bias", "ln2.bias", "_norm.scale",
-                          "_norm.bias", "final_norm.scale", "final_norm.bias"))
+#: The leaves the reference stores and reads in float32 whatever the compute
+#: dtype: norm scales and biases, and the RG-LRU's gates and ``lambda``.
+_FLOAT32_LEAVES = ("scale", "bias", "w_a", "b_a", "w_i", "b_i", "lambda")
+
+
+def keeps_float32(name: str) -> bool:
+    """Whether the parameter ``name`` stays float32 in every copy."""
+    return name.rsplit(".", 1)[-1] in _FLOAT32_LEAVES
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, dtype=torch.float32,
@@ -184,14 +222,32 @@ def _out_proj(p: Attention, attn_out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bhsk,hkd->bsd", attn_out, p.wo.to(attn_out.dtype))
 
 
-def _attn_full(cfg: ArchConfig, p: Block, x: torch.Tensor, pos: torch.Tensor):
-    """Full-sequence attention block: ``(x, {"k", "v"})``."""
+def _window(cfg: ArchConfig, kind: str) -> int:
+    return cfg.window if kind == "local" else 0
+
+
+def _attn_full(cfg: ArchConfig, p: Block, x: torch.Tensor, pos: torch.Tensor, window: int):
+    """Full-sequence attention block (``window > 0``: sliding window):
+    ``(x, {"k", "v"})``, the cache keeping the last ``window`` positions."""
     h = layers.norm_apply(p.ln1, x)
     q, k, v = _project_qkv(cfg, p.attn, h)
     q, k = _apply_rope(cfg, q, k, pos)
-    attn_out = attention.chunked_causal_attention(q, k, v, chunk_size=1024)
+    attn_out = attention.chunked_causal_attention(q, k, v, chunk_size=1024, window=window)
     x = x + _out_proj(p.attn, attn_out)
-    return _ffn(cfg, p, x), k, v
+    if window and window < k.shape[2]:
+        k, v = k[:, :, -window:], v[:, :, -window:]
+    return _ffn(cfg, p, x), {"k": k, "v": v}
+
+
+def _recurrent_full(cfg: ArchConfig, p: Block, x: torch.Tensor):
+    out, state = rglru.rglru_block_apply(p.rec, layers.norm_apply(p.ln1, x))
+    return _ffn(cfg, p, x + out), state
+
+
+def _block_full(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, pos: torch.Tensor):
+    if kind == "rglru":
+        return _recurrent_full(cfg, p, x)
+    return _attn_full(cfg, p, x, pos, _window(cfg, kind))
 
 
 def _quantize_kv(t: torch.Tensor):
@@ -202,31 +258,63 @@ def _quantize_kv(t: torch.Tensor):
     return q, scale
 
 
-def _attn_step(cfg: ArchConfig, p: Block, x: torch.Tensor, cache: dict, layer: int,
-               pos: int):
-    """Single-token attention block; writes slot ``pos`` of layer ``layer``'s
-    cache entries in place."""
+def _attn_step(cfg: ArchConfig, p: Block, x: torch.Tensor, cache: dict, pos: int,
+               window: int):
+    """Single-token attention block; writes its keys and values into
+    ``cache`` (one layer's ``{"k", "v"}``, ``(B, Hkv, S_max, Dh)``) in place:
+    at slot ``pos``, or ``pos % window`` in a local layer's rolling buffer,
+    which then holds ``min(pos + 1, S_max)`` valid slots (RoPE carries the
+    absolute positions, so the order of the slots does not matter)."""
     h = layers.norm_apply(p.ln1, x)
     q, k, v = _project_qkv(cfg, p.attn, h)                     # (B, H, 1, Dh)
     pos_t = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
     q, k = _apply_rope(cfg, q, k, pos_t)
-    k_cache, v_cache = cache["k"][layer], cache["v"][layer]
-    write = min(pos, k_cache.shape[2] - 1)
+    k_cache, v_cache = cache["k"], cache["v"]
+    s_max = k_cache.shape[2]
+    write = min(pos % window if window else pos, s_max - 1)
     kq = {}
     if "ks" in cache:
         k_w, k_s = _quantize_kv(k)
         v_w, v_s = _quantize_kv(v)
         k_cache[:, :, write] = k_w[:, :, 0]
         v_cache[:, :, write] = v_w[:, :, 0]
-        cache["ks"][layer][:, :, write] = k_s[:, :, 0]
-        cache["vs"][layer][:, :, write] = v_s[:, :, 0]
-        kq = dict(k_scale=cache["ks"][layer], v_scale=cache["vs"][layer])
+        cache["ks"][:, :, write] = k_s[:, :, 0]
+        cache["vs"][:, :, write] = v_s[:, :, 0]
+        kq = dict(k_scale=cache["ks"], v_scale=cache["vs"])
     else:
         k_cache[:, :, write] = k[:, :, 0].to(k_cache.dtype)
         v_cache[:, :, write] = v[:, :, 0].to(v_cache.dtype)
-    attn_out = attention.decode_attention(q, k_cache, v_cache, cache_len=pos + 1, **kq)
+    valid = min(pos + 1, s_max) if window else pos + 1
+    attn_out = attention.decode_attention(q, k_cache, v_cache, cache_len=valid, **kq)
     x = x + _out_proj(p.attn, attn_out)
     return _ffn(cfg, p, x)
+
+
+def _recurrent_step(cfg: ArchConfig, p: Block, x: torch.Tensor, cache: dict):
+    """Single-token RG-LRU block; writes the new ``h`` and ``conv`` into
+    ``cache`` in place."""
+    out, state = rglru.rglru_block_step(p.rec, layers.norm_apply(p.ln1, x), cache)
+    cache["h"].copy_(state["h"])
+    cache["conv"].copy_(state["conv"])
+    return _ffn(cfg, p, x + out)
+
+
+def _block_step(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, cache: dict,
+                pos: int):
+    if kind == "rglru":
+        return _recurrent_step(cfg, p, x, cache)
+    return _attn_step(cfg, p, x, cache, pos, _window(cfg, kind))
+
+
+def _layer_caches(cfg: ArchConfig, caches: dict):
+    """Each block's cache entry, in block order: views into the stacked
+    unit entries, then the tail entries."""
+    n_units, tail = pattern_layout(cfg)
+    for u in range(n_units):
+        for entry in caches["units"]:
+            yield {name: t[u] for name, t in entry.items()}
+    for i in range(len(tail)):
+        yield caches[f"tail_{i}"]
 
 
 # ---------------------------------------------------------------------------
@@ -242,23 +330,30 @@ def _weights(params: Transformer, dtype) -> Transformer:
 def forward_full(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
                  dtype=torch.bfloat16, collect_cache: bool = False):
     """Hidden states (B, S, d) after the final norm, and with
-    ``collect_cache`` the prefill caches ``{"units": [{"k", "v"}]}`` (leaves
-    ``(n_layers, B, Hkv, S, Dh)`` in ``dtype``), else None."""
+    ``collect_cache`` the prefill caches (the module docstring's tree: an
+    ``attn`` entry holds all S positions, a ``local`` one the last
+    ``min(S, window)``, an ``rglru`` one the state after position S - 1),
+    else None."""
     w = _weights(params, dtype)
-    b, s = tokens.shape
     x = layers.embed(w.embed, tokens, dtype)
-    pos = torch.arange(s, device=tokens.device)
-    caches = None
-    if collect_cache:
-        shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.head_dim_)
-        caches = {"units": [{"k": torch.empty(shape, dtype=dtype, device=x.device),
-                             "v": torch.empty(shape, dtype=dtype, device=x.device)}]}
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    n_units, _ = pattern_layout(cfg)
+    width = len(cfg.block_pattern)
+    caches = {"units": [None] * width} if collect_cache and n_units else {}
     for i, blk in enumerate(w.blocks):
-        x, k, v = _attn_full(cfg, blk, x, pos)
-        if caches is not None:
-            caches["units"][0]["k"][i] = k
-            caches["units"][0]["v"][i] = v
-    return layers.norm_apply(w.final_norm, x), caches
+        x, entry = _block_full(cfg, blk.kind, blk, x, pos)
+        if not collect_cache:
+            continue
+        u, j = divmod(i, width)
+        if u >= n_units:
+            caches[f"tail_{i - n_units * width}"] = entry
+            continue
+        if u == 0:      # the stacked buffers, from the first unit's shapes
+            caches["units"][j] = {name: t.new_empty((n_units, *t.shape))
+                                  for name, t in entry.items()}
+        for name, t in entry.items():
+            caches["units"][j][name][u] = t
+    return layers.norm_apply(w.final_norm, x), (caches if collect_cache else None)
 
 
 def logits_from_hidden(cfg: ArchConfig, params: Transformer, hidden: torch.Tensor):
@@ -278,44 +373,77 @@ def prefill(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
 
 def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                       quantized: bool = False, device=None):
-    """Zero caches sized for ``max_len`` decode positions; ``quantized``
-    stores K/V as int8 with per-(token, head) float32 scales."""
+    """Zero caches sized for ``max_len`` decode positions (a ``local`` entry
+    for ``min(window, max_len)``); ``quantized`` stores K/V as int8 with
+    per-(token, head) float32 scales."""
     check_supported(cfg)
-    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
-    zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
-    if quantized:
-        entry = {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
-                 "ks": zeros(shape[:-1], torch.float32), "vs": zeros(shape[:-1], torch.float32)}
-    else:
-        entry = {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
-    return {"units": [entry]}
+    n_units, tail = pattern_layout(cfg)
+
+    def entry(kind, lead=()):
+        if kind == "rglru":
+            state = rglru.rglru_init_state(batch, _d_rnn(cfg), dtype, device)
+            return {name: t.new_zeros((*lead, *t.shape)) for name, t in state.items()}
+        s = min(cfg.window or max_len, max_len) if kind == "local" else max_len
+        shape = (*lead, batch, cfg.n_kv_heads, s, cfg.head_dim_)
+        zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=device)
+        if quantized:
+            return {"k": zeros(shape, torch.int8), "v": zeros(shape, torch.int8),
+                    "ks": zeros(shape[:-1], torch.float32),
+                    "vs": zeros(shape[:-1], torch.float32)}
+        return {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
+
+    cache = {}
+    if n_units:
+        cache["units"] = [entry(kind, (n_units,)) for kind in cfg.block_pattern]
+    for i, kind in enumerate(tail):
+        cache[f"tail_{i}"] = entry(kind)
+    return cache
 
 
 def grow_cache(cfg: ArchConfig, caches: dict, prefill_len: int, max_len: int,
                dtype=torch.bfloat16) -> dict:
-    """Prefill caches as fixed decode buffers of ``max_len``: each attention
-    entry zero-padded on the sequence axis (decode masks by ``pos + 1``)."""
+    """Prefill caches as fixed decode buffers of ``max_len``: an ``attn``
+    entry zero-padded on the sequence axis (decode masks by ``pos + 1``); a
+    ``local`` entry rolled so that position ``p`` sits at slot ``p % window``
+    (the slot decode overwrites is then the oldest), padded to ``min(window,
+    max_len)``; recurrent states passed through unchanged."""
     check_supported(cfg)
-    out = {"units": []}
-    for entry in caches["units"]:
+    window = cfg.window
+    _, tail = pattern_layout(cfg)
+
+    def fix(kind, entry):
+        if kind == "rglru":
+            return entry
         k, v = entry["k"], entry["v"]
-        pad = max_len - k.shape[-2]
+        target = max_len
+        if kind == "local" and window:
+            shift = prefill_len % window if prefill_len >= window else 0
+            if shift:
+                k, v = torch.roll(k, shift, dims=-2), torch.roll(v, shift, dims=-2)
+            target = min(window, max_len)
+        pad = target - k.shape[-2]
         if pad > 0:
             k = nn.functional.pad(k, (0, 0, 0, pad))
             v = nn.functional.pad(v, (0, 0, 0, pad))
-        out["units"].append({"k": k.to(dtype), "v": v.to(dtype)})
+        return {"k": k.to(dtype), "v": v.to(dtype)}
+
+    out = {}
+    for key, val in caches.items():
+        if key == "units":
+            out["units"] = [fix(kind, e) for kind, e in zip(cfg.block_pattern, val)]
+        else:
+            out[key] = fix(tail[int(key.split("_")[1])], val)
     return out
 
 
 def decode_step(cfg: ArchConfig, params: Transformer, token: torch.Tensor, cache: dict,
                 pos: int, dtype=torch.bfloat16):
     """One decode step. ``token (B,)`` int; ``pos`` the position it takes
-    (the same for all rows). Writes its keys and values into ``cache`` in
-    place; returns ``(logits (B, V), cache)``."""
+    (the same for all rows). Writes its keys, values and recurrent states
+    into ``cache`` in place; returns ``(logits (B, V), cache)``."""
     w = _weights(params, dtype)
     x = layers.embed(w.embed, token[:, None], dtype)
-    entry = cache["units"][0]
-    for i, blk in enumerate(w.blocks):
-        x = _attn_step(cfg, blk, x, entry, i, int(pos))
+    for blk, entry in zip(w.blocks, _layer_caches(cfg, cache)):
+        x = _block_step(cfg, blk.kind, blk, x, entry, int(pos))
     x = layers.norm_apply(w.final_norm, x)
     return logits_from_hidden(cfg, params, x)[:, 0], cache

@@ -19,17 +19,20 @@ from repro_torch.models import build_model
 from repro_torch.runtime import fault_tolerance
 
 ROOT = Path(__file__).resolve().parents[1]
-# The files of the later slices (and two of the kernels' files, to make room
-# for the analyzer's test items) are checked inside one item, not as cases of
-# their own: each case moves pytest-xdist's schedule (ROADMAP.md queue 3,
-# "The count rule").
+# The files of the later slices (and, to make room for later test items,
+# two of the kernels' files and the LM configs) are checked inside one item,
+# not as cases of their own: each case moves pytest-xdist's schedule
+# (ROADMAP.md queue 3, "The count rule").
 GROUPED_FILES = [ROOT / "src" / "repro_torch" / name for name in
                  ("runtime/__init__.py", "runtime/fault_tolerance.py", "streaming/fit.py",
                   "runtime/shardings.py", "launch/mesh.py", "core/distributed.py",
                   "analysis/__init__.py", "analysis/__main__.py", "analysis/findings.py",
                   "analysis/ast_lint.py", "analysis/smem.py", "analysis/dispatch_audit.py",
                   "analysis/entry_points.py", "analysis/cli.py", "obs/__main__.py",
-                  "kernels/_build.py", "obs/trace.py")]
+                  "kernels/_build.py", "obs/trace.py", "models/rglru.py",
+                  "configs/recurrentgemma_2b.py", "configs/__init__.py", "configs/base.py",
+                  "configs/chatglm3_6b.py", "configs/minicpm_2b.py", "configs/qwen3_4b.py",
+                  "configs/smollm_360m.py", "models/__init__.py")]
 # Spawned ranks import this helper, so it must stand alone too.
 RANK_HELPERS = [ROOT / "tests" / "torch_dist.py"]
 PORT_FILES = sorted(set((ROOT / "src" / "repro_torch").rglob("*.py")) - set(GROUPED_FILES)) + [
@@ -61,7 +64,7 @@ def test_port_file_list_is_complete():
             "baselines.py", "fit.py", "fault_tolerance.py", "distributed.py",
             "shardings.py", "mesh.py", "findings.py", "ast_lint.py", "smem.py",
             "dispatch_audit.py", "entry_points.py", "cli.py", "__main__.py",
-            "_build.py"} <= names
+            "_build.py", "rglru.py", "recurrentgemma_2b.py"} <= names
 
 
 def _example_main(name):
@@ -122,8 +125,8 @@ def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
     spawned ranks' helper import neither JAX nor the reference, and the NMTF
     atom, the baselines, both examples' ``main``, the out-of-core fit, the
     launcher's demo fit, the meshes, the distributed driver, the elastic
-    restore and the analyzer's audit ask for the card by default (one item:
-    the collected count is kept, ROADMAP.md queue 3)."""
+    restore, the analyzer's audit and the hybrid LM ask for the card by
+    default (one item: the collected count is kept, ROADMAP.md queue 3)."""
     assert all(path.is_file() for path in GROUPED_FILES + RANK_HELPERS)
     for path in ([ROOT / "examples" / f"{name}.py" for name in EXAMPLES] + GROUPED_FILES
                  + RANK_HELPERS):
@@ -147,6 +150,9 @@ def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
                      {"data": 1, "model": 1}, a, lamc.LAMCConfig(2, 2),
                      lamc.partition.PartitionPlan(40, 30, 2, 1, 20, 30, 1)),
                  lambda: fault_tolerance.elastic_restore(str(tmp_path), 0, {}, None, {}),
-                 lambda: dispatch_audit.audit_entry_points(["cosine_assign"])):
+                 lambda: dispatch_audit.audit_entry_points(["cosine_assign"]),
+                 lambda: build_model(reduced("recurrentgemma-2b")),
+                 lambda: serve.generate(arch="recurrentgemma-2b", batch=1, prompt_len=4,
+                                        gen_len=2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

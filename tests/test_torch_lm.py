@@ -1,21 +1,28 @@
 """The LM serving path against the reference, on the CPU, with the reference's
 weights injected.
 
-Reduced configs of the four dense archs the port runs (qwen3-4b: GQA with
+Reduced configs of the five archs the port runs (qwen3-4b: GQA with
 qk_norm; smollm-360m: 3/1 heads of width 20; minicpm-2b: MHA, odd vocab;
-chatglm3-6b: half-dim RoPE). The reference's ``model.init`` tree goes through
-``interop.lm_params_from_numpy``; the same numpy tokens go through both
-packages' ``forward_full``, ``prefill``, ``grow_cache`` and ``decode_step``.
+chatglm3-6b: half-dim RoPE; recurrentgemma-2b: one (rglru, rglru, local)
+unit and two tail RG-LRU blocks, window 16, gelu). The reference's
+``model.init`` tree goes through ``interop.lm_params_from_numpy``; the same
+numpy tokens go through both packages' ``forward_full``, ``prefill`` (23
+tokens: the local cache is cut to the last 16), ``grow_cache`` (the local
+cache rolled by 7) and ``decode_step``; every leaf of the cache trees is
+compared.
 
 Tolerances, each relative to the largest |value| of the reference's tensor:
 
 * float32 compute: 1e-4. The two sides add the same products in another
-  order (ATen's and XLA's CPU matmuls, the flash plain version's chunks),
-  which moves two-layer logits by at most 1.8e-6 of their scale (measured).
-* bf16 compute: ``BF16_TOL`` = 3e-2, measured on these configs at 1.7e-2 at
-  most (logits, hidden states and caches). bf16 keeps 8 bits, and XLA's CPU
-  fusions keep some intermediates in float32 where ATen rounds each op to
-  bf16, so single elements differ by a few bf16 steps.
+  order (ATen's and XLA's CPU matmuls, the flash plain version's chunks,
+  the RG-LRU's scan tree), which moves the logits by at most 1.8e-6 of
+  their scale and recurrentgemma-2b's caches by at most 1.2e-5 (measured).
+* bf16 compute: ``BF16_TOL`` = 3e-2, measured at 1.7e-2 at most on the dense
+  configs and 2.7e-2 on recurrentgemma-2b (its decoded conv state; hidden
+  states 2.1e-2, logits 1.3e-2). bf16 keeps 8 bits, and the reference
+  rounds where XLA puts it (its units are compiled, its tail blocks run op
+  by op), so single elements differ by a few bf16 steps and five layers
+  carry them further than two.
 * int8 caches: one quantization step (the scale) per element, since a
   value within float32 noise of a rounding midpoint may round either way.
 """
@@ -31,14 +38,15 @@ import torch
 from repro.configs import reduced as jreduced
 from repro.models import build_model as jbuild_model
 from repro.models import layers as jlayers
+from repro.models import rglru as jrglru
 from repro.models import transformer as jtransformer
 from repro_torch import interop
 from repro_torch.configs import get_arch, list_archs, reduced
 from repro_torch.kernels import ops
 from repro_torch.launch import serve
-from repro_torch.models import build_model, layers, transformer
+from repro_torch.models import build_model, layers, rglru, transformer
 
-ARCHS = ["qwen3-4b", "smollm-360m", "minicpm-2b", "chatglm3-6b"]
+ARCHS = ["qwen3-4b", "smollm-360m", "minicpm-2b", "chatglm3-6b", "recurrentgemma-2b"]
 F32_TOL = 1e-4
 BF16_TOL = 3e-2
 SEQ, MAX_LEN = 24, 40
@@ -69,6 +77,24 @@ def _close(got, want, tol, what):
     scale = float(np.abs(want).max())
     err = float(np.abs(got - want).max())
     assert err <= tol * scale, f"{what}: max |err| {err} > {tol} x {scale}"
+
+
+def _leaves(tree, path=""):
+    """``{path: leaf}`` of a cache tree (dicts and lists, either package)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(tree))
+    else:
+        return {path: tree}
+    return {k: v for key, sub in items for k, v in _leaves(sub, f"{path}/{key}").items()}
+
+
+def _close_trees(got, want, tol, what):
+    got, want = _leaves(got), _leaves(want)
+    assert sorted(got) == sorted(want), f"{what}: leaves {sorted(got)} != {sorted(want)}"
+    for path in want:
+        _close(got[path], want[path], tol, f"{what} {path}")
 
 
 def _weights(arch, dtype=torch.float32):
@@ -104,7 +130,9 @@ def _runs(arch, dt):
                                                              dtype=tdt)
         port["grown"] = transformer.grow_cache(cfg, port["caches"], SEQ - 1, MAX_LEN,
                                                dtype=tdt)
-        grown = {"units": [{k: v.clone() for k, v in port["grown"]["units"][0].items()}]}
+        grown = {key: ([{k: v.clone() for k, v in e.items()} for e in val] if key == "units"
+                       else {k: v.clone() for k, v in val.items()})
+                 for key, val in port["grown"].items()}
         port["decode"], port["after"] = transformer.decode_step(
             cfg, tparams, tt[:, -1], grown, SEQ - 1, dtype=tdt)
     _RUNS[arch, dt] = ref, port
@@ -169,6 +197,46 @@ def test_mlp_matches_reference(act):
            1e-5, f"mlp {act}")
 
 
+def test_rglru_block_matches_reference():
+    """The RG-LRU block on the reference's weights: ``rglru_block_apply``
+    (S = 1, 2, 24, with and without ``h0``) and a ``rglru_block_step``
+    chained from its state. float32 against the reference at ``F32_TOL``
+    (measured at 8.2e-7 at most); the bf16 apply against the compiled
+    reference (``jax.jit``, whose rounding the conv follows) at one bf16
+    step of the scale, 2^-8 (measured at 1.5e-3)."""
+    d = 48
+    jp = jrglru.rglru_block_init(jax.random.key(2), d, d)
+    tree = jax.tree.map(np.asarray, jp)
+    leaves = {"w_x": tree["w_x"]["w"], "w_gate": tree["w_gate"]["w"],
+              "w_out": tree["w_out"]["w"], "conv": tree["conv"], "lambda": tree["lambda"],
+              **{f"gates.{n}": tree["gates"][n] for n in ("w_a", "b_a", "w_i", "b_i")}}
+    rng = np.random.default_rng(7)
+    for dt in ("f32", "bf16"):
+        jdt, tdt = DTYPES[dt]
+        blk = rglru.RecurrentBlock(d, d, device="meta")
+        blk.load_state_dict({n: torch.tensor(np.array(v)).to(
+            torch.float32 if transformer.keeps_float32(n) else tdt) for n, v in leaves.items()},
+            strict=True, assign=True)
+        apply = jrglru.rglru_block_apply if dt == "f32" else jax.jit(jrglru.rglru_block_apply)
+        for s in (1, 2, 24):
+            x = rng.normal(size=(2, s + 1, d)).astype(np.float32)
+            h0 = rng.normal(size=(2, d)).astype(np.float32)
+            for with_h0 in (False, True):
+                what = f"{dt} S={s} h0={with_h0}"
+                jo, js = apply(jp, jnp.asarray(x[:, :s]).astype(jdt),
+                               jnp.asarray(h0) if with_h0 else None)
+                to, ts = rglru.rglru_block_apply(blk, torch.from_numpy(x[:, :s]).to(tdt),
+                                                 torch.from_numpy(h0) if with_h0 else None)
+                tol = F32_TOL if dt == "f32" else 2 ** -8
+                _close(to, jo, tol, f"apply out {what}")
+                _close_trees(ts, js, tol, f"apply state {what}")
+                if dt == "f32":
+                    jo, js = jrglru.rglru_block_step(jp, jnp.asarray(x[:, s:]), js)
+                    to, ts = rglru.rglru_block_step(blk, torch.from_numpy(x[:, s:]), ts)
+                    _close(to, jo, tol, f"step out {what}")
+                    _close_trees(ts, js, tol, f"step state {what}")
+
+
 # ---------------------------------------------------------------------------
 # the model, with the reference's weights
 # ---------------------------------------------------------------------------
@@ -181,9 +249,7 @@ def test_forward_and_prefill_match_reference(arch, dt):
     tol = F32_TOL if dt == "f32" else BF16_TOL
     _close(port["hidden"], ref["hidden"], tol, "forward_full hidden")
     _close(port["logits"], ref["logits"], tol, "prefill logits")
-    for leaf in ("k", "v"):
-        _close(port["caches"]["units"][0][leaf], ref["caches"]["units"][0][leaf], tol,
-               f"prefill cache {leaf}")
+    _close_trees(port["caches"], ref["caches"], tol, "prefill cache")
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -191,12 +257,13 @@ def test_forward_and_prefill_match_reference(arch, dt):
 def test_grow_cache_and_decode_match_reference(arch, dt):
     ref, port = _runs(arch, dt)
     tol = F32_TOL if dt == "f32" else BF16_TOL
-    for leaf in ("k", "v"):
-        assert port["grown"]["units"][0][leaf].shape[-2] == MAX_LEN
-        _close(port["grown"]["units"][0][leaf], ref["grown"]["units"][0][leaf], tol,
-               f"grown cache {leaf}")
-        _close(port["after"]["units"][0][leaf], ref["after"]["units"][0][leaf], tol,
-               f"cache after decode {leaf}")
+    cfg = reduced(arch)
+    for kind, entry in zip(cfg.block_pattern, port["grown"]["units"]):
+        if kind != "rglru":      # a local entry is a rolling buffer of the window
+            want = min(cfg.window, MAX_LEN) if kind == "local" else MAX_LEN
+            assert entry["k"].shape[-2] == entry["v"].shape[-2] == want
+    _close_trees(port["grown"], ref["grown"], tol, "grown cache")
+    _close_trees(port["after"], ref["after"], tol, "cache after decode")
     _close(port["decode"], ref["decode"], tol, "decode logits")
 
 
@@ -268,9 +335,10 @@ def test_greedy_generation_gives_the_reference_tokens(arch):
 
 def test_generate_runs_on_the_cpu():
     ops.reset_launch_counts()
-    out = serve.generate(arch="qwen3-4b", batch=2, prompt_len=10, gen_len=4, device="cpu")
-    assert out["tokens"].shape == (2, 4) and out["tokens"].dtype == np.int32
-    assert out["logits_finite"] and out["tokens_per_s"] > 0
+    for arch in ("qwen3-4b", "recurrentgemma-2b"):
+        out = serve.generate(arch=arch, batch=2, prompt_len=10, gen_len=4, device="cpu")
+        assert out["tokens"].shape == (2, 4) and out["tokens"].dtype == np.int32
+        assert out["logits_finite"] and out["tokens_per_s"] > 0
     assert ops.launch_counts()["flash_attention"] == 0
     sampled = serve.generate(arch="qwen3-4b", batch=2, prompt_len=10, gen_len=4,
                              device="cpu", greedy=False)
@@ -294,12 +362,23 @@ def test_weights_carry_over_exactly():
     np.testing.assert_array_equal(
         half.embed.to(torch.float32).numpy(),
         np.asarray(jparams["embed"]["table"].astype(jnp.bfloat16), np.float32))
+    # the RG-LRU's gates are read in float32, so the compute copy shares them
+    _, jparams, tparams = _weights("recurrentgemma-2b")
+    rec = tparams.blocks[4].rec                                # the second tail block
+    np.testing.assert_array_equal(rec.gates.w_a.numpy(),
+                                  np.asarray(jparams["tail"][1]["rec"]["gates"]["w_a"]))
+    np.testing.assert_array_equal(tparams.blocks[1].rec.conv.numpy(),   # unit 0, position 1
+                                  np.asarray(jparams["units"]["1"]["rec"]["conv"][0]))
+    half = tparams.compute(torch.bfloat16).blocks[4].rec
+    assert half.gates.w_a.dtype == getattr(half, "lambda").dtype == torch.float32
+    assert half.gates.w_a.data_ptr() == rec.gates.w_a.data_ptr()       # shared, not copied
+    assert half.w_x.dtype == half.conv.dtype == torch.bfloat16
 
 
 def test_unported_archs_and_training_raise():
     assert list_archs() == sorted(ARCHS)
-    for name in ("deepseek-moe-16b", "recurrentgemma-2b", "xlstm-125m", "whisper-medium",
-                 "qwen2-vl-72b", "llama4-scout-17b-a16e"):
+    for name in ("deepseek-moe-16b", "xlstm-125m", "whisper-medium", "qwen2-vl-72b",
+                 "llama4-scout-17b-a16e"):
         with pytest.raises(NotImplementedError, match="item 16"):
             get_arch(name)
         with pytest.raises(NotImplementedError, match="item 16"):
@@ -307,7 +386,8 @@ def test_unported_archs_and_training_raise():
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
     cfg = reduced("qwen3-4b")
-    for change in (dict(n_experts=4, experts_per_token=2), dict(block_pattern=("local",)),
+    for change in (dict(n_experts=4, experts_per_token=2),
+                   dict(block_pattern=("mlstm", "slstm")),
                    dict(rope="mrope"), dict(enc_dec=True), dict(n_dense_layers=1)):
         with pytest.raises(NotImplementedError, match="item 16"):
             build_model(dataclasses.replace(cfg, **change), device="cpu")
@@ -319,8 +399,9 @@ def test_unported_archs_and_training_raise():
 def test_profile_serve_runs_on_the_cpu():
     from repro_torch.launch import profile_serve
 
-    out = profile_serve.profile_serve(arch="smollm-360m", batch=2, prompt_len=12,
-                                      decode_steps=2, device="cpu")
-    assert out["layers"] == 2 and out["decode"]["steps"] == 2
-    for phase in ("prefill", "decode"):
-        assert out[phase]["wall_ms"] > 0 and out[phase]["device_ms"] is None
+    for arch, n_layers in (("smollm-360m", 2), ("recurrentgemma-2b", 5)):
+        out = profile_serve.profile_serve(arch=arch, batch=2, prompt_len=12,
+                                          decode_steps=2, device="cpu")
+        assert out["layers"] == n_layers and out["decode"]["steps"] == 2
+        for phase in ("prefill", "decode"):
+            assert out[phase]["wall_ms"] > 0 and out[phase]["device_ms"] is None
