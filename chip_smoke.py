@@ -164,8 +164,10 @@ Phases, each printing one JSON line:
    shape (B = 4, Hq = 32, Hkv = 8, S = 2048, Dh = 128, bf16), the same in
    float32, Dh = 64 (15/5 heads), Dh = 256, a ragged S = 1000, non-causal
    recurrentgemma-2b's windowed local attention (10/1 heads, Dh = 256,
-   window 2,048, S = 4,096) and the same at its served prefill (B = 4, a
-   ragged S = 3,000), against its plain version, each through the
+   window 2,048, S = 4,096), the same at its served prefill (B = 4, a
+   ragged S = 3,000) and deepseek-moe-16b's served prefill (B = 4,
+   Hq = Hkv = 16, S = 2,048, Dh = 128, bf16: multi-head, no GQA), against
+   its plain version, each through the
    kernel its dtype must take (``wgmma`` for bf16, ``f32_pipe`` for
    float32), then timed (CUDA events) beside its bound, the plain version
    and ``scaled_dot_product_attention`` (a yardstick only: the port never
@@ -191,6 +193,21 @@ Phases, each printing one JSON line:
    random weights), batch 4, prompt 3,000, 32 tokens, bf16: as phase 19,
    with the analytic and the built parameter counts; one flash launch per
    local layer (8), no other kernel.
+19c. ``parity_lm_moe``: deepseek-moe-16b at full width (d = 2,048, 16/16
+   heads, 64 experts top-6 of width 1,408, 2 shared, capacity factor
+   1.25) cut to 3 layers (the dense first layer of width 10,944 and two MoE
+   layers), B = 1, a 256-token prompt, 8 tokens, float32 compute, card
+   against CPU as in ``parity_lm``: 3 flash launches, and the (token, k)
+   pairs each MoE layer's prefill drops at capacity, equal on both.
+19d. ``lm_deepseek_moe_16b_serve``: ``launch.serve.generate`` of the full
+   deepseek-moe-16b (28 layers: the dense one and 27 MoE layers, seeded
+   random weights stored in bf16, since float32 masters would need 97 GB),
+   batch 4, prompt 2,048, 32 tokens, bf16: as phase 19, with the pairs
+   each prefill layer drops (none at decode, where each row's six pairs
+   take six experts of capacity 1); one flash launch per layer (28), no
+   other kernel: routing, dispatch, the grouped expert products (cuBLAS)
+   and the combine are plain PyTorch, as the reference's MoE has no
+   Pallas kernel.
 20. The card's line from nvidia-smi, the ``kernels`` summary, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -303,7 +320,8 @@ KMEANS_EDGE_SHAPES = [(2, 3000, 1, 1, True), (3, 1, 5, 16, True), (3, 33, 5, 16,
 # first is the served prefill of lm_qwen3_4b_serve, the last two
 # recurrentgemma-2b's local attention at full width (10/1 heads, Dh = 256,
 # a 2,048-key window) over a 4,096-token prompt and at the served prefill of
-# lm_recurrentgemma_2b_serve (window and ragged S together).
+# lm_recurrentgemma_2b_serve (window and ragged S together), then the served
+# prefill of lm_deepseek_moe_16b_serve (16/16 heads).
 FLASH_SHAPES = [("served", 4, 32, 8, 2048, 128, "bf16", True, 0),
                 ("served_f32", 4, 32, 8, 2048, 128, "f32", True, 0),
                 ("dh64_15_5", 4, 15, 5, 2048, 64, "bf16", True, 0),
@@ -311,7 +329,8 @@ FLASH_SHAPES = [("served", 4, 32, 8, 2048, 128, "bf16", True, 0),
                 ("ragged_s1000", 4, 32, 8, 1000, 128, "bf16", True, 0),
                 ("noncausal", 4, 32, 8, 2048, 128, "bf16", False, 0),
                 ("rg2b_local", 1, 10, 1, 4096, 256, "bf16", True, 2048),
-                ("rg2b_served", 4, 10, 1, 3000, 256, "bf16", True, 2048)]
+                ("rg2b_served", 4, 10, 1, 3000, 256, "bf16", True, 2048),
+                ("ds16b_served", 4, 16, 16, 2048, 128, "bf16", True, 0)]
 # The kernel each dtype must take: bf16 at Dh 64, 128 and 256 (aligned
 # tensors) the wgmma kernel, float32 the float32 pipe.
 FLASH_ROUTE = {"bf16": "wgmma", "f32": "f32_pipe"}
@@ -329,6 +348,13 @@ LM_PARITY = dict(layers=2, batch=1, prompt=256, gen=4, logit_rtol=1e-3)
 # config's 5 layers over 2,100 tokens (the roll moves them by 52).
 LM_RG_ARCH, LM_RG_BATCH, LM_RG_PROMPT, LM_RG_GEN = "recurrentgemma-2b", 4, 3000, 32
 LM_RG_PARITY = dict(layers=5, batch=1, prompt=2100, gen=8, logit_rtol=1e-3)
+# The MoE LM cell: deepseek-moe-16b at full width and depth with its weights
+# stored in bf16 (16.2 B parameters: float32 masters and a bf16 copy would
+# need 97 GB), batch 4, prompt 2,048, 32 tokens; its parity run cut to the
+# dense first layer and two MoE layers, float32 masters, 256 tokens (the
+# prefill drops pairs at capacity factor 1.25).
+LM_MOE_ARCH, LM_MOE_BATCH, LM_MOE_PROMPT, LM_MOE_GEN = "deepseek-moe-16b", 4, 2048, 32
+LM_MOE_PARITY = dict(layers=3, batch=1, prompt=256, gen=8, logit_rtol=1e-3)
 
 
 class CheckFailed(Exception):
@@ -2650,10 +2676,11 @@ def phase_kernels_flash(gen) -> dict:
 
 
 def _attention_layers(cfg) -> int:
-    """The layers that launch the flash kernel in a prefill."""
+    """The layers that launch the flash kernel in a prefill: the leading
+    dense layers and the pattern's attention blocks."""
     from repro_torch.models import transformer
 
-    return sum(kind != "rglru" for kind in transformer.block_kinds(cfg))
+    return cfg.n_dense_layers + sum(kind != "rglru" for kind in transformer.block_kinds(cfg))
 
 
 def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
@@ -2661,7 +2688,8 @@ def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
     """``arch`` at full width, cut to ``spec["layers"]`` layers, float32
     compute, on the card and on the CPU with the same weights: one flash
     launch per attention layer, prefill logits within ``spec["logit_rtol"]``
-    of max|logit|, the same greedy tokens."""
+    of max|logit|, the same greedy tokens, and in an MoE model the same
+    count of (token, k) pairs dropped by each MoE layer's prefill."""
     import copy
     import dataclasses
 
@@ -2670,7 +2698,7 @@ def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
 
     cfg = dataclasses.replace(get_arch(arch), n_layers=spec["layers"])
     host = build_model(cfg, dtype=torch.float32, device="cpu")
@@ -2680,10 +2708,14 @@ def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
     prompts = torch.as_tensor(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (spec["batch"], spec["prompt"])))
     ops.reset_launch_counts()
-    logits_card, _ = card.prefill(params_card, prompts.cuda())
+    with moe.count_dropped() as dropped_card:
+        logits_card, _ = card.prefill(params_card, prompts.cuda())
     launches = ops.launch_counts()["flash_attention"]
-    logits_host, _ = host.prefill(params_host, prompts)
+    with moe.count_dropped() as dropped_host:
+        logits_host, _ = host.prefill(params_host, prompts)
     torch.cuda.synchronize()
+    dropped_card = [int(n) for n in dropped_card]
+    dropped_host = [int(n) for n in dropped_host]
     scale = logits_host.abs().max().item()
     err = (logits_card.cpu() - logits_host).abs().max().item()
     out_card = serve._generate(card, params_card, prompts.cuda(), spec["gen"])
@@ -2693,8 +2725,14 @@ def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
     emit(phase, arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
          batch=spec["batch"], prompt=spec["prompt"], compute="float32",
          max_abs_logit_err=err, max_abs_logit=scale, flash_launches=launches,
-         tokens_card=out_card["tokens"].tolist(), tokens_cpu=out_host["tokens"].tolist())
+         tokens_card=out_card["tokens"].tolist(), tokens_cpu=out_host["tokens"].tolist(),
+         **(dict(dropped_pairs_card=dropped_card, dropped_pairs_cpu=dropped_host,
+                 pairs_per_layer=spec["batch"] * spec["prompt"] * cfg.experts_per_token)
+            if cfg.is_moe else {}))
     check(launches == want, f"{phase}: {launches} flash launches, expected {want}")
+    moe_layers = cfg.n_layers - cfg.n_dense_layers if cfg.is_moe else 0
+    check(len(dropped_card) == moe_layers and dropped_card == dropped_host,
+          f"{phase}: dropped pairs {dropped_card} on the card, {dropped_host} on the CPU")
     check(err <= spec["logit_rtol"] * scale,
           f"{phase}: logits differ by {err} (> {spec['logit_rtol']} x {scale})")
     check(equal, f"{phase}: greedy tokens on the card differ from the CPU's")
@@ -2705,13 +2743,14 @@ def phase_parity_lm(seed: int, arch: str = LM_ARCH, spec: dict = LM_PARITY,
 
 def phase_lm_serve(seed: int, smi: str, arch: str = LM_ARCH, batch: int = LM_BATCH,
                    prompt: int = LM_PROMPT, gen: int = LM_GEN,
-                   cell: str = "lm_qwen3_4b_serve") -> dict:
-    """An LM cell: the full ``arch`` served through ``launch.serve.generate``."""
+                   cell: str = "lm_qwen3_4b_serve", param_dtype: str = "float32") -> dict:
+    """An LM cell: the full ``arch`` served through ``launch.serve.generate``,
+    its weights stored in ``param_dtype``."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
-    from repro_torch.models import transformer
+    from repro_torch.models import moe, transformer
 
     cfg = get_arch(arch)
     built = sum(p.numel() for p in transformer.Transformer(cfg, device="meta").parameters())
@@ -2720,13 +2759,22 @@ def phase_lm_serve(seed: int, smi: str, arch: str = LM_ARCH, batch: int = LM_BAT
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = serve.generate(arch=arch, batch=batch, prompt_len=prompt, gen_len=gen,
-                         use_reduced=False, seed=seed)
+    with moe.count_dropped() as dropped:
+        out = serve.generate(arch=arch, batch=batch, prompt_len=prompt, gen_len=gen,
+                             use_reduced=False, seed=seed,
+                             param_dtype=serve.PARAM_DTYPES[param_dtype])
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
+    moe_layers = cfg.n_layers - cfg.n_dense_layers if cfg.is_moe else 0
+    dropped = [int(n) for n in dropped]
+    routing = dict(prefill_dropped_pairs=dropped[:moe_layers],
+                   pairs_per_layer=batch * prompt * cfg.experts_per_token,
+                   decode_dropped_pairs=sum(dropped[moe_layers:])) if moe_layers else {}
     emit(cell, cell=cell, nvidia_smi=smi, arch=arch,
          layers=cfg.n_layers, params=cfg.param_count(), params_built=built, batch=batch,
-         prompt=prompt, gen=gen, compute="bfloat16", weights="float32 masters + bf16 copy",
+         prompt=prompt, gen=gen, compute="bfloat16",
+         weights=("bf16" if param_dtype == "bfloat16" else "float32 masters + bf16 copy"),
+         **routing,
          prefill_ms=out["prefill_s"] * 1e3, decode_s=out["decode_s"],
          decode_ms_per_step=out["decode_s"] * 1e3 / (gen - 1),
          decode_tokens_per_s=out["tokens_per_s"], wall_s=wall,
@@ -2736,6 +2784,9 @@ def phase_lm_serve(seed: int, smi: str, arch: str = LM_ARCH, batch: int = LM_BAT
     want = {name: 0 for name in counts}
     want["flash_attention"] = _attention_layers(cfg)   # one prefill: one a layer
     check(counts == want, f"{cell}: launch counts {counts}, expected {want}")
+    if moe_layers:     # one prefill call and gen - 1 decode calls a MoE layer
+        check(len(dropped) == moe_layers * gen and routing["decode_dropped_pairs"] == 0,
+              f"{cell}: dropped pairs {dropped}")
     check(out["tokens"].shape == (batch, gen), f"{cell}: tokens {out['tokens'].shape}")
     check(out["logits_finite"], f"{cell}: a logit is not finite")
     torch.cuda.empty_cache()
@@ -2831,6 +2882,10 @@ def main() -> int:
         phase_parity_lm(args.seed, LM_RG_ARCH, LM_RG_PARITY, "parity_lm_rg")
         lm_rg_counts = phase_lm_serve(args.seed, smi, LM_RG_ARCH, LM_RG_BATCH, LM_RG_PROMPT,
                                       LM_RG_GEN, "lm_recurrentgemma_2b_serve")
+        phase_parity_lm(args.seed, LM_MOE_ARCH, LM_MOE_PARITY, "parity_lm_moe")
+        lm_moe_counts = phase_lm_serve(args.seed, smi, LM_MOE_ARCH, LM_MOE_BATCH,
+                                       LM_MOE_PROMPT, LM_MOE_GEN, "lm_deepseek_moe_16b_serve",
+                                       param_dtype="bfloat16")
     except Exception:  # every failure ends the run with a nonzero exit
         traceback.print_exc()
         return 1
@@ -2838,6 +2893,7 @@ def main() -> int:
     cells = {"lamc_dense_131k": dense_counts, "lamc_sparse_131k_d0.1": sparse_counts,
              "lamc_dense_131k_serve": serve_counts, "lm_qwen3_4b_serve": lm_counts,
              "lm_recurrentgemma_2b_serve": lm_rg_counts,
+             "lm_deepseek_moe_16b_serve": lm_moe_counts,
              "lamc_dense_131k_nmtf": nmtf_counts, "baselines_131k": baseline_counts,
              "examples": example_counts, "lamc_stream_131k": stream_counts,
              "lamc_stream_1.5m_ooc": ooc_counts, "lamc_dense_131k_dist": dist_counts,

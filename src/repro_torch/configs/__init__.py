@@ -1,5 +1,6 @@
-"""Architecture configs the port runs: the dense GQA/MHA models whose serving
-path is on the card. Use ``get_arch(name)`` / ``reduced(name)`` / ``cells()``."""
+"""Architecture configs the port runs: the dense GQA/MHA, hybrid and MoE
+models whose serving path is on the card. Use ``get_arch(name)`` /
+``reduced(name)`` / ``cells()``."""
 
 from .base import (SHAPES, ArchConfig, ShapeConfig, active_param_count, cells, get_arch,
                    list_archs, param_count, reduced, register)

@@ -147,12 +147,13 @@ _ARCH_MODULES = [
     "minicpm_2b",
     "qwen3_4b",
     "recurrentgemma_2b",
+    "deepseek_moe_16b",
+    "llama4_scout_17b_a16e",
 ]
 
-#: The reference's other registered architectures: their blocks (MoE,
-#: xLSTM, encoder-decoder, M-RoPE) or workloads are not ported yet.
-NOT_PORTED = ("llama4-scout-17b-a16e", "deepseek-moe-16b", "qwen2-vl-72b", "xlstm-125m",
-              "whisper-medium", "lamc-coclustering")
+#: The reference's other registered architectures: their blocks (xLSTM,
+#: encoder-decoder, M-RoPE) or workloads are not ported yet.
+NOT_PORTED = ("qwen2-vl-72b", "xlstm-125m", "whisper-medium", "lamc-coclustering")
 
 
 def register(cfg: ArchConfig, reduced_cfg: ArchConfig) -> ArchConfig:

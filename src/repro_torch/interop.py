@@ -175,7 +175,8 @@ def _norm_leaves(prefix: str, tree: Mapping, index=None) -> dict:
 
 def _block_leaves(prefix: str, kind: str, tree: Mapping, index=None) -> dict:
     """One block's leaves (``index`` picks it from a stacked unit): ``ln1``,
-    ``attn`` (``attn``, ``local``) or ``rec`` (``rglru``), ``ln2``, ``mlp``."""
+    ``attn`` (``attn``, ``local``) or ``rec`` (``rglru``), ``ln2``, and
+    ``mlp`` or ``moe`` (the router, the stacked experts, ``shared``)."""
     take = (lambda a: a) if index is None else (lambda a: a[index])
     out = {**_norm_leaves(f"{prefix}.ln1", tree["ln1"], index),
            **_norm_leaves(f"{prefix}.ln2", tree["ln2"], index)}
@@ -194,21 +195,31 @@ def _block_leaves(prefix: str, kind: str, tree: Mapping, index=None) -> dict:
         for name in ("q_norm", "k_norm"):
             if name in attn:
                 out.update(_norm_leaves(f"{prefix}.attn.{name}", attn[name], index))
-    for name in ("w_in", "w_gate", "w_out"):
-        out[f"{prefix}.mlp.{name}"] = take(tree["mlp"][name]["w"])
+    if "moe" in tree:
+        experts = tree["moe"]
+        out[f"{prefix}.moe.router"] = take(experts["router"]["w"])
+        for name in ("w_in", "w_gate", "w_out"):
+            out[f"{prefix}.moe.{name}"] = take(experts[name])
+        ffn, mlp = f"{prefix}.moe.shared", experts.get("shared")
+    else:
+        ffn, mlp = f"{prefix}.mlp", tree["mlp"]
+    if mlp is not None:
+        for name in ("w_in", "w_gate", "w_out"):
+            out[f"{ffn}.{name}"] = take(mlp[name]["w"])
     return out
 
 
 def lm_params_from_numpy(cfg, params_np: Mapping, device: str | torch.device = "cuda",
                          param_dtype=torch.float32) -> transformer.Transformer:
     """The reference's ``model.init(key)`` tree (leaves as numpy arrays) as
-    the port's weights: ``embed.table``, ``final_norm``, the ``units`` (one
-    subtree per pattern position, stacked along a leading ``n_units`` axis;
-    block ``u * len(pattern) + j`` is position ``j`` of unit ``u``), the
-    ``tail`` blocks after them and the optional ``lm_head``. Matrices are
-    stored in ``param_dtype``, the leaves the reference keeps in float32
-    (``transformer.keeps_float32``) in float32; every leaf must be used and
-    every weight given."""
+    the port's weights: ``embed.table``, ``final_norm``, the leading dense
+    ``head_layers``, the ``units`` (one subtree per pattern position, stacked
+    along a leading ``n_units`` axis; block ``u * len(pattern) + j`` is
+    position ``j`` of unit ``u``), the ``tail`` blocks after them and the
+    optional ``lm_head``. Matrices are stored in ``param_dtype``, the leaves
+    the reference keeps in float32 (``transformer.keeps_float32``: norms,
+    gates, the MoE router) in float32; every leaf must be used and every
+    weight given."""
     dev = resolve_device(device)
     transformer.check_supported(cfg)
     n_units, tail = transformer.pattern_layout(cfg)
@@ -216,6 +227,8 @@ def lm_params_from_numpy(cfg, params_np: Mapping, device: str | torch.device = "
               **_norm_leaves("final_norm", params_np["final_norm"])}
     if "lm_head" in params_np:
         leaves["lm_head"] = params_np["lm_head"]["w"]
+    for i, blk in enumerate(params_np.get("head_layers", [])):
+        leaves.update(_block_leaves(f"head_layers.{i}", "attn", blk))
     pattern = cfg.block_pattern
     for u in range(n_units):
         for j, kind in enumerate(pattern):

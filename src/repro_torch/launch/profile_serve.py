@@ -3,8 +3,9 @@ prefill and a few decode steps.
 
 ``python -m repro_torch.launch.profile_serve --full-config`` profiles the full
 qwen3-4b on the card (batch 4, prompt 2048) after one untimed warm-up pass
-(``--arch recurrentgemma-2b --prompt-len 3000`` the hybrid); ``--device
-cpu`` profiles a reduced config on the CPU. For each phase it
+(``--arch recurrentgemma-2b --prompt-len 3000`` the hybrid, ``--arch
+deepseek-moe-16b --param-dtype bfloat16`` the MoE model with its weights
+stored in bf16); ``--device cpu`` profiles a reduced config on the CPU. For each phase it
 prints the host wall time, the device time (the sum of the kernels'
 self time, CUDA only), the device's idle share ``1 - device / wall``, and
 the operators and kernels that take the most device time. The profiler
@@ -25,6 +26,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..configs.base import get_arch, reduced
 from ..models import build_model, transformer
+from .serve import PARAM_DTYPES
 
 __all__ = ["profile_serve", "main"]
 
@@ -60,11 +62,13 @@ def _phase(fn, device: torch.device, rows: int) -> dict:
 @torch.inference_mode()
 def profile_serve(*, arch: str = "qwen3-4b", batch: int = 4, prompt_len: int = 2048,
                   decode_steps: int = 3, use_reduced: bool = True, seed: int = 0,
-                  device: str | torch.device = "cuda", rows: int = 12) -> dict:
+                  device: str | torch.device = "cuda", rows: int = 12,
+                  param_dtype=torch.float32) -> dict:
     """Profile one prefill and ``decode_steps`` decode steps (after a warm-up
-    of each) of ``arch`` with random weights from ``seed``."""
+    of each) of ``arch`` with random weights from ``seed``, stored in
+    ``param_dtype``."""
     cfg = reduced(arch) if use_reduced else get_arch(arch)
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, param_dtype=param_dtype, device=device)
     dev = model.device
     params = model.init(seed)
     prompts = torch.as_tensor(
@@ -101,10 +105,11 @@ def main(argv=None):
     ap.add_argument("--decode-steps", type=int, default=3)
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--param-dtype", choices=sorted(PARAM_DTYPES), default="float32")
     args = ap.parse_args(argv)
     out = profile_serve(arch=args.arch, batch=args.batch, prompt_len=args.prompt_len,
                         decode_steps=args.decode_steps, use_reduced=not args.full_config,
-                        device=args.device)
+                        device=args.device, param_dtype=PARAM_DTYPES[args.param_dtype])
     for phase in ("prefill", "decode"):
         print(json.dumps({"phase": phase, **{k: out[k] for k in ("arch", "layers", "batch",
                                                                    "prompt", "device")},

@@ -1,8 +1,12 @@
 """LM serving launcher: batched prefill, then a decode loop over KV caches.
 
 ``python -m repro_torch.launch.serve --arch qwen3-4b --full-config`` serves
-the full qwen3-4b on the card (random weights from ``seed``); ``--device cpu``
-runs a reduced config on the CPU. As the reference's
+the full qwen3-4b on the card (random weights from ``seed``); ``--arch
+deepseek-moe-16b --full-config --param-dtype bfloat16`` the full
+deepseek-moe-16b, whose float32 masters (16.2 B parameters) would not fit
+the card, with its weights stored in bf16 (the same bits: the reference
+casts each matrix to the compute dtype at every use); ``--device cpu`` runs
+a reduced config on the CPU. As the reference's
 ``src/repro/launch/serve.py``: prompts are drawn with
 ``np.random.default_rng(seed)`` (so they are the reference's prompts), the
 prefill fills the caches, ``grow_cache`` makes them decode buffers of
@@ -29,7 +33,10 @@ import torch
 from ..configs.base import get_arch, reduced
 from ..models import Model, build_model, transformer
 
-__all__ = ["generate", "main"]
+__all__ = ["PARAM_DTYPES", "generate", "main"]
+
+#: ``--param-dtype`` choices.
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _sync(device: torch.device) -> None:
@@ -81,9 +88,11 @@ def _generate(model: Model, params, prompts: torch.Tensor, gen_len: int, *,
 
 def generate(*, arch: str, batch: int, prompt_len: int, gen_len: int,
              use_reduced: bool = True, seed: int = 0, greedy: bool = True,
-             device: str | torch.device = "cuda") -> dict:
+             device: str | torch.device = "cuda", param_dtype=torch.float32) -> dict:
+    """Serve random prompts through ``arch`` with random weights, stored in
+    ``param_dtype`` (float32 masters by default)."""
     cfg = reduced(arch) if use_reduced else get_arch(arch)
-    model = build_model(cfg, device=device)
+    model = build_model(cfg, param_dtype=param_dtype, device=device)
     params = model.init(seed)
     rng = np.random.default_rng(seed)
     prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
@@ -100,10 +109,14 @@ def main(argv=None):
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--sample", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--param-dtype", choices=sorted(PARAM_DTYPES), default="float32",
+                    help="how the weights are stored (bfloat16 to serve a model whose "
+                         "float32 masters do not fit)")
     args = ap.parse_args(argv)
     out = generate(arch=args.arch, batch=args.batch, prompt_len=args.prompt_len,
                    gen_len=args.gen, use_reduced=not args.full_config,
-                   greedy=not args.sample, device=args.device)
+                   greedy=not args.sample, device=args.device,
+                   param_dtype=PARAM_DTYPES[args.param_dtype])
     print(json.dumps({
         "batch": args.batch, "gen": args.gen,
         "prefill_s": round(out["prefill_s"], 3),

@@ -11,7 +11,9 @@ reference's do:
   reference casts the table, then gathers);
 * ``_rotate`` casts cos/sin to ``x.dtype`` before it multiplies;
 * ``gelu`` is ``jax.nn.gelu``'s tanh formula with its constants in
-  ``x.dtype``, op by op (ATen's fused bf16 GELU rounds elsewhere).
+  ``x.dtype``, op by op (ATen's fused bf16 GELU rounds elsewhere);
+* ``silu`` is ``jax.nn.silu`` as XLA expands it, ``x * (1 / (1 + exp(-x)))``
+  op by op in ``x.dtype`` (ATen's fused SiLU rounds once, at the end).
 
 Weights are stored in the model's parameter dtype (float32 masters); the
 matrices are cast to the compute dtype once, when the compute copy is made
@@ -27,7 +29,7 @@ import torch
 from torch import nn
 
 __all__ = ["Norm", "MLP", "dense", "rmsnorm", "layernorm", "norm_apply", "embed", "gelu",
-           "mlp", "rotary_angles", "apply_rope", "apply_rope_half"]
+           "silu", "mlp", "rotary_angles", "apply_rope", "apply_rope_half"]
 
 
 def _weight(shape, std: float, dtype, device, gen) -> nn.Parameter:
@@ -103,10 +105,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * x ** 3))))
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)`` with the sigmoid as ``1 / (1 + exp(-x))``, each op
+    rounding to ``x.dtype``, as ``jax.nn.silu`` compiles."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
 def mlp(p: MLP, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     h = dense(p.w_in, x)
     g = dense(p.w_gate, x)
-    g = nn.functional.silu(g) if act == "silu" else gelu(g)
+    g = silu(g) if act == "silu" else gelu(g)
     return dense(p.w_out, h * g)
 
 

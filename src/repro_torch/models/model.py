@@ -4,10 +4,12 @@ init_decode_cache.
 The layer the serving launcher and the tests consume, as the reference's
 ``src/repro/models/model.py``; the assembly lives in ``transformer.py``.
 
-Weights are float32 masters (``param_dtype``) and the forward passes compute
-in ``dtype`` (bf16 by default). The reference casts each matrix to ``dtype``
-at every use; here ``init`` makes the cast copy once, when the weights are
-built (``Transformer.compute``), which gives the same bits.
+Weights are stored in ``param_dtype`` (float32 masters by default; bf16 for
+a model whose masters do not fit the card, as deepseek-moe-16b) and the
+forward passes compute in ``dtype`` (bf16 by default). The reference casts
+each matrix to ``dtype`` at every use; here ``init`` makes the cast copy
+once, when the weights are built (``Transformer.compute``; none when they
+are stored in ``dtype``), which gives the same bits.
 """
 
 from __future__ import annotations

@@ -4,25 +4,31 @@ weights as ``nn.Module``s.
 Mirrors the reference's ``src/repro/models/transformer.py`` for patterns
 whose kinds are ``attn`` (global causal attention), ``local`` (sliding-window
 attention over ``cfg.window`` keys) and ``rglru`` (the RG-LRU recurrent block
-of ``rglru.py``), each followed by a dense gated FFN: the dense archs
-(qwen3, smollm, minicpm, chatglm3; pattern ``("attn",)``) and
-recurrentgemma-2b (``("rglru", "rglru", "local")``).
+of ``rglru.py``), each followed by a gated FFN: dense, or the MoE layer of
+``moe.py`` when the config has experts. The dense archs (qwen3, smollm,
+minicpm, chatglm3; pattern ``("attn",)``), recurrentgemma-2b (``("rglru",
+"rglru", "local")``) and the MoE archs (deepseek-moe-16b, llama4-scout;
+``("attn",)``).
 
-Layout: ``pattern_layout`` gives ``n_units`` full units of the pattern and
-the tail kinds. Block ``u * len(pattern) + j`` of ``Transformer.blocks`` is
-pattern position ``j`` of unit ``u``; the tail blocks come after the units.
-The reference stacks the units along a leading axis and applies them under
+Layout: the ``n_dense_layers`` leading blocks (deepseek's first layer) are
+``Transformer.head_layers``: ``attn`` blocks with a dense FFN of width
+``dense_d_ff``, applied before everything else. ``pattern_layout`` gives
+``n_units`` full units of the pattern over the other layers and the tail
+kinds. Block ``u * len(pattern) + j`` of ``Transformer.blocks`` is pattern
+position ``j`` of unit ``u``; the tail blocks come after the units. The
+reference stacks the units along a leading axis and applies them under
 ``lax.scan``; here the blocks are an ``nn.ModuleList`` and the scan is a
-loop. MoE, xLSTM, encoder-decoder, M-RoPE, frontends and leading dense
-layers raise ``NotImplementedError`` (ROADMAP queue 1, item 16).
+loop. xLSTM, encoder-decoder, M-RoPE and frontends raise
+``NotImplementedError`` (ROADMAP queue 1, item 16).
 
 Entry points (same weights):
     ``forward_full``   — pre-head hidden states for a whole sequence
     ``prefill``        — forward_full + per-layer caches, last-token logits
     ``decode_step``    — one token through the cached states
 
-Caches keep the reference's tree: ``{"units": [one entry per pattern
-position, each leaf stacked over the units], "tail_<i>": entry}``. An
+Caches keep the reference's tree: ``{"head_<i>": entry, "units": [one
+entry per pattern position, each leaf stacked over the units], "tail_<i>":
+entry}``. An
 attention entry is ``{"k", "v"}`` ``(B, Hkv, S, Dh)`` (an int8 cache adds
 per-(token, head) float32 scales ``"ks"``, ``"vs"`` ``(B, Hkv, S)``); a
 ``local`` entry holds at most ``window`` positions, as a rolling buffer in
@@ -39,7 +45,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ArchConfig
-from . import attention, layers, rglru
+from . import attention, layers, moe, rglru
 
 __all__ = ["Transformer", "Block", "Attention", "check_supported", "pattern_layout",
            "block_kinds", "keeps_float32", "init_params", "forward_full",
@@ -75,10 +81,6 @@ def check_supported(cfg: ArchConfig) -> None:
     other = sorted(set(cfg.block_pattern) - set(_KINDS))
     if other:
         missing.append(f"{', '.join(other)} blocks")
-    if cfg.is_moe:
-        missing.append("MoE blocks")
-    if cfg.n_dense_layers > 0:
-        missing.append("leading dense layers")
     if cfg.enc_dec:
         missing.append("encoder-decoder")
     if cfg.rope not in ("standard", "half", "none"):
@@ -90,7 +92,7 @@ def check_supported(cfg: ArchConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to PyTorch yet ({_ITEM}); "
-            f"the port runs {', '.join(_KINDS)} blocks with a dense FFN")
+            f"the port runs {', '.join(_KINDS)} blocks with a dense or MoE FFN")
 
 
 class Attention(nn.Module):
@@ -112,12 +114,16 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     """One block of ``kind``: ``ln1``, ``attn`` (``attn``, ``local``) or ``rec``
-    (``rglru``), ``ln2``, ``mlp``."""
+    (``rglru``), ``ln2``, and ``mlp`` or, in an MoE config, ``moe``;
+    ``dense_d_ff`` makes a leading dense layer (an ``mlp`` of that width).
+    ``in_unit``: a block of the pattern's units, which the reference runs
+    compiled (``_ffn``)."""
 
-    def __init__(self, cfg: ArchConfig, kind: str, *, dtype=torch.float32, device=None,
-                 gen=None):
+    def __init__(self, cfg: ArchConfig, kind: str, *, in_unit: bool = False,
+                 dense_d_ff: int = 0, dtype=torch.float32, device=None, gen=None):
         super().__init__()
         self.kind = kind
+        self.in_unit = in_unit
         self.ln1 = layers.Norm(cfg.norm, cfg.d_model, device=device)
         if kind == "rglru":
             self.rec = rglru.RecurrentBlock(cfg.d_model, _d_rnn(cfg), dtype=dtype,
@@ -125,16 +131,23 @@ class Block(nn.Module):
         else:
             self.attn = Attention(cfg, dtype=dtype, device=device, gen=gen)
         self.ln2 = layers.Norm(cfg.norm, cfg.d_model, device=device)
-        self.mlp = layers.MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device, gen=gen)
+        if cfg.is_moe and not dense_d_ff:
+            self.moe = moe.MoE(cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.n_experts,
+                               cfg.n_shared_experts, dtype=dtype, device=device, gen=gen)
+        else:
+            self.mlp = layers.MLP(cfg.d_model, dense_d_ff or cfg.d_ff, dtype=dtype,
+                                  device=device, gen=gen)
 
 
 class Transformer(nn.Module):
-    """The weights: ``embed (vocab, d)``, ``blocks``, ``final_norm`` and, for
-    untied embeddings, ``lm_head (d, vocab)``.
+    """The weights: ``embed (vocab, d)``, ``head_layers`` (the leading dense
+    layers), ``blocks``, ``final_norm`` and, for untied embeddings,
+    ``lm_head (d, vocab)``.
 
-    The matrices are stored in the parameter dtype (float32 masters); the
-    leaves the reference reads in float32 (norm scales and biases, the
-    RG-LRU's gates and ``lambda``: ``keeps_float32``) stay float32.
+    The matrices are stored in the parameter dtype (float32 masters, or
+    bf16 to serve a model whose masters do not fit); the leaves the
+    reference reads in float32 (norm scales and biases, the RG-LRU's gates
+    and ``lambda``, the MoE router: ``keeps_float32``) stay float32.
     ``compute(dtype)`` returns the copy the forward passes read: the other
     matrices cast to ``dtype`` once and kept (the reference casts them at
     every use, which gives the same bits), the float32 leaves shared with
@@ -149,8 +162,13 @@ class Transformer(nn.Module):
         self.cfg = cfg
         d = cfg.d_model
         self.embed = layers._weight((cfg.vocab_size, d), 0.02, dtype, device, gen)
-        self.blocks = nn.ModuleList(Block(cfg, kind, dtype=dtype, device=device, gen=gen)
-                                    for kind in block_kinds(cfg))
+        self.head_layers = nn.ModuleList(
+            Block(cfg, "attn", dense_d_ff=cfg.dense_d_ff or cfg.d_ff, dtype=dtype,
+                  device=device, gen=gen) for _ in range(cfg.n_dense_layers))
+        n_unit_blocks = pattern_layout(cfg)[0] * len(cfg.block_pattern)
+        self.blocks = nn.ModuleList(
+            Block(cfg, kind, in_unit=i < n_unit_blocks, dtype=dtype, device=device, gen=gen)
+            for i, kind in enumerate(block_kinds(cfg)))
         self.final_norm = layers.Norm(cfg.norm, d, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = layers._weight((d, cfg.vocab_size), d ** -0.5, dtype, device, gen)
@@ -174,8 +192,9 @@ class Transformer(nn.Module):
 
 
 #: The leaves the reference stores and reads in float32 whatever the compute
-#: dtype: norm scales and biases, and the RG-LRU's gates and ``lambda``.
-_FLOAT32_LEAVES = ("scale", "bias", "w_a", "b_a", "w_i", "b_i", "lambda")
+#: and parameter dtypes: norm scales and biases, the RG-LRU's gates and
+#: ``lambda``, and the MoE router.
+_FLOAT32_LEAVES = ("scale", "bias", "w_a", "b_a", "w_i", "b_i", "lambda", "router")
 
 
 def keeps_float32(name: str) -> bool:
@@ -213,9 +232,23 @@ def _apply_rope(cfg: ArchConfig, q: torch.Tensor, k: torch.Tensor, pos: torch.Te
     return layers.apply_rope(q, k, pos)
 
 
-def _ffn(cfg: ArchConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
-    h2 = layers.norm_apply(p.ln2, x)
-    return x + layers.mlp(p.mlp, h2, act=cfg.act)
+def _ffn(cfg: ArchConfig, p: Block, x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``x + out`` (the mixer's residual), then the FFN and its residual.
+
+    The reference runs a unit's blocks compiled (inside its ``lax.scan``),
+    and there XLA adds ``x + out`` in float32 and the ``ln2`` norm reads
+    that sum before it is rounded to the compute dtype; the residual keeps
+    the rounded sum, as it does op by op. (In bf16 a top-1 MoE with
+    capacity drops turns a one-step difference there into other routes.)"""
+    s = x + out
+    if p.in_unit:
+        h2 = layers.norm_apply(p.ln2, x.to(torch.float32) + out.to(torch.float32)).to(x.dtype)
+    else:
+        h2 = layers.norm_apply(p.ln2, s)
+    if hasattr(p, "moe"):       # serving drops the load-balance loss
+        return s + moe.moe_apply(p.moe, h2, top_k=cfg.experts_per_token, act=cfg.act,
+                                 capacity_factor=cfg.capacity_factor)[0]
+    return s + layers.mlp(p.mlp, h2, act=cfg.act)
 
 
 def _out_proj(p: Attention, attn_out: torch.Tensor) -> torch.Tensor:
@@ -233,15 +266,14 @@ def _attn_full(cfg: ArchConfig, p: Block, x: torch.Tensor, pos: torch.Tensor, wi
     q, k, v = _project_qkv(cfg, p.attn, h)
     q, k = _apply_rope(cfg, q, k, pos)
     attn_out = attention.chunked_causal_attention(q, k, v, chunk_size=1024, window=window)
-    x = x + _out_proj(p.attn, attn_out)
     if window and window < k.shape[2]:
         k, v = k[:, :, -window:], v[:, :, -window:]
-    return _ffn(cfg, p, x), {"k": k, "v": v}
+    return _ffn(cfg, p, x, _out_proj(p.attn, attn_out)), {"k": k, "v": v}
 
 
 def _recurrent_full(cfg: ArchConfig, p: Block, x: torch.Tensor):
     out, state = rglru.rglru_block_apply(p.rec, layers.norm_apply(p.ln1, x))
-    return _ffn(cfg, p, x + out), state
+    return _ffn(cfg, p, x, out), state
 
 
 def _block_full(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, pos: torch.Tensor):
@@ -286,8 +318,7 @@ def _attn_step(cfg: ArchConfig, p: Block, x: torch.Tensor, cache: dict, pos: int
         v_cache[:, :, write] = v[:, :, 0].to(v_cache.dtype)
     valid = min(pos + 1, s_max) if window else pos + 1
     attn_out = attention.decode_attention(q, k_cache, v_cache, cache_len=valid, **kq)
-    x = x + _out_proj(p.attn, attn_out)
-    return _ffn(cfg, p, x)
+    return _ffn(cfg, p, x, _out_proj(p.attn, attn_out))
 
 
 def _recurrent_step(cfg: ArchConfig, p: Block, x: torch.Tensor, cache: dict):
@@ -296,7 +327,7 @@ def _recurrent_step(cfg: ArchConfig, p: Block, x: torch.Tensor, cache: dict):
     out, state = rglru.rglru_block_step(p.rec, layers.norm_apply(p.ln1, x), cache)
     cache["h"].copy_(state["h"])
     cache["conv"].copy_(state["conv"])
-    return _ffn(cfg, p, x + out)
+    return _ffn(cfg, p, x, out)
 
 
 def _block_step(cfg: ArchConfig, kind: str, p: Block, x: torch.Tensor, cache: dict,
@@ -330,8 +361,8 @@ def _weights(params: Transformer, dtype) -> Transformer:
 def forward_full(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
                  dtype=torch.bfloat16, collect_cache: bool = False):
     """Hidden states (B, S, d) after the final norm, and with
-    ``collect_cache`` the prefill caches (the module docstring's tree: an
-    ``attn`` entry holds all S positions, a ``local`` one the last
+    ``collect_cache`` the prefill caches (the module docstring's tree: a
+    ``head`` or ``attn`` entry holds all S positions, a ``local`` one the last
     ``min(S, window)``, an ``rglru`` one the state after position S - 1),
     else None."""
     w = _weights(params, dtype)
@@ -339,7 +370,13 @@ def forward_full(cfg: ArchConfig, params: Transformer, tokens: torch.Tensor,
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     n_units, _ = pattern_layout(cfg)
     width = len(cfg.block_pattern)
-    caches = {"units": [None] * width} if collect_cache and n_units else {}
+    caches = {}
+    for i, blk in enumerate(w.head_layers):
+        x, entry = _attn_full(cfg, blk, x, pos, 0)
+        if collect_cache:
+            caches[f"head_{i}"] = entry
+    if collect_cache and n_units:
+        caches["units"] = [None] * width
     for i, blk in enumerate(w.blocks):
         x, entry = _block_full(cfg, blk.kind, blk, x, pos)
         if not collect_cache:
@@ -392,7 +429,7 @@ def init_decode_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfl
                     "vs": zeros(shape[:-1], torch.float32)}
         return {"k": zeros(shape, dtype), "v": zeros(shape, dtype)}
 
-    cache = {}
+    cache = {f"head_{i}": entry("attn") for i in range(cfg.n_dense_layers)}
     if n_units:
         cache["units"] = [entry(kind, (n_units,)) for kind in cfg.block_pattern]
     for i, kind in enumerate(tail):
@@ -431,6 +468,8 @@ def grow_cache(cfg: ArchConfig, caches: dict, prefill_len: int, max_len: int,
     for key, val in caches.items():
         if key == "units":
             out["units"] = [fix(kind, e) for kind, e in zip(cfg.block_pattern, val)]
+        elif key.startswith("head_"):
+            out[key] = fix("attn", val)
         else:
             out[key] = fix(tail[int(key.split("_")[1])], val)
     return out
@@ -443,6 +482,8 @@ def decode_step(cfg: ArchConfig, params: Transformer, token: torch.Tensor, cache
     into ``cache`` in place; returns ``(logits (B, V), cache)``."""
     w = _weights(params, dtype)
     x = layers.embed(w.embed, token[:, None], dtype)
+    for i, blk in enumerate(w.head_layers):
+        x = _attn_step(cfg, blk, x, cache[f"head_{i}"], int(pos), 0)
     for blk, entry in zip(w.blocks, _layer_caches(cfg, cache)):
         x = _block_step(cfg, blk.kind, blk, x, entry, int(pos))
     x = layers.norm_apply(w.final_norm, x)

@@ -29,6 +29,7 @@ from repro_torch.core import merging as tmerging
 from repro_torch.core import metrics as tmetrics
 from repro_torch.core import probability as tprobability
 from repro_torch.data import synthetic as tsynthetic
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

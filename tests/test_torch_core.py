@@ -27,6 +27,7 @@ from repro_torch.core import metrics as tmetrics
 from repro_torch.core import partition as tpartition
 from repro_torch.core import spectral as tspectral
 from repro_torch.data import synthetic as tsynthetic
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 CPU = "cpu"
 

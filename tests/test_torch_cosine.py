@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.kmeans_assign import cosine_assign_pallas, cosine_topk_pallas
 from repro_torch.kernels import kmeans_assign, ops, ref
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 RTOL, ATOL = 1e-5, 1e-6
 

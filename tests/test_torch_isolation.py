@@ -20,9 +20,10 @@ from repro_torch.runtime import fault_tolerance
 
 ROOT = Path(__file__).resolve().parents[1]
 # The files of the later slices (and, to make room for later test items,
-# two of the kernels' files and the LM configs) are checked inside one item,
-# not as cases of their own: each case moves pytest-xdist's schedule
-# (ROADMAP.md queue 3, "The count rule").
+# two of the kernels' files, the LM configs, the LM path's models and
+# launchers, obs and checkpoint) are checked inside one item, not as cases
+# of their own: each case moves pytest-xdist's schedule (ROADMAP.md queue 3,
+# "The count rule").
 GROUPED_FILES = [ROOT / "src" / "repro_torch" / name for name in
                  ("runtime/__init__.py", "runtime/fault_tolerance.py", "streaming/fit.py",
                   "runtime/shardings.py", "launch/mesh.py", "core/distributed.py",
@@ -32,7 +33,12 @@ GROUPED_FILES = [ROOT / "src" / "repro_torch" / name for name in
                   "kernels/_build.py", "obs/trace.py", "models/rglru.py",
                   "configs/recurrentgemma_2b.py", "configs/__init__.py", "configs/base.py",
                   "configs/chatglm3_6b.py", "configs/minicpm_2b.py", "configs/qwen3_4b.py",
-                  "configs/smollm_360m.py", "models/__init__.py")]
+                  "configs/smollm_360m.py", "models/__init__.py", "models/moe.py",
+                  "configs/deepseek_moe_16b.py", "configs/llama4_scout_17b_a16e.py",
+                  "models/attention.py", "models/layers.py", "models/model.py",
+                  "models/transformer.py", "launch/__init__.py", "launch/profile_serve.py",
+                  "launch/serve.py", "obs/__init__.py", "obs/export.py", "obs/metrics.py",
+                  "checkpoint/__init__.py", "checkpoint/checkpoint.py")]
 # Spawned ranks import this helper, so it must stand alone too.
 RANK_HELPERS = [ROOT / "tests" / "torch_dist.py"]
 PORT_FILES = sorted(set((ROOT / "src" / "repro_torch").rglob("*.py")) - set(GROUPED_FILES)) + [
@@ -64,7 +70,8 @@ def test_port_file_list_is_complete():
             "baselines.py", "fit.py", "fault_tolerance.py", "distributed.py",
             "shardings.py", "mesh.py", "findings.py", "ast_lint.py", "smem.py",
             "dispatch_audit.py", "entry_points.py", "cli.py", "__main__.py",
-            "_build.py", "rglru.py", "recurrentgemma_2b.py"} <= names
+            "_build.py", "rglru.py", "recurrentgemma_2b.py", "moe.py",
+            "deepseek_moe_16b.py", "llama4_scout_17b_a16e.py"} <= names
 
 
 def _example_main(name):
@@ -125,8 +132,9 @@ def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
     spawned ranks' helper import neither JAX nor the reference, and the NMTF
     atom, the baselines, both examples' ``main``, the out-of-core fit, the
     launcher's demo fit, the meshes, the distributed driver, the elastic
-    restore, the analyzer's audit and the hybrid LM ask for the card by
-    default (one item: the collected count is kept, ROADMAP.md queue 3)."""
+    restore, the analyzer's audit, the hybrid LM and the MoE LM ask for the
+    card by default (one item: the collected count is kept, ROADMAP.md
+    queue 3)."""
     assert all(path.is_file() for path in GROUPED_FILES + RANK_HELPERS)
     for path in ([ROOT / "examples" / f"{name}.py" for name in EXAMPLES] + GROUPED_FILES
                  + RANK_HELPERS):
@@ -153,6 +161,9 @@ def test_examples_and_slice9_entry_points_stand_alone(monkeypatch, tmp_path):
                  lambda: dispatch_audit.audit_entry_points(["cosine_assign"]),
                  lambda: build_model(reduced("recurrentgemma-2b")),
                  lambda: serve.generate(arch="recurrentgemma-2b", batch=1, prompt_len=4,
-                                        gen_len=2)):
+                                        gen_len=2),
+                 lambda: build_model(reduced("deepseek-moe-16b"), param_dtype=torch.bfloat16),
+                 lambda: serve.generate(arch="deepseek-moe-16b", batch=1, prompt_len=4,
+                                        gen_len=2, param_dtype=torch.bfloat16)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

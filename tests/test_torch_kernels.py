@@ -18,6 +18,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels.bipartite_normalize import scale_apply_pallas
 from repro_torch.kernels import ops, ref
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 KM_RTOL, KM_ATOL = 1e-5, 1e-4
 

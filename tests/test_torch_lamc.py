@@ -35,6 +35,7 @@ from repro_torch import interop, streaming
 from repro_torch.core import lamc
 from repro_torch.core.metrics import nmi
 from repro_torch.data import to_bcoo
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 CPU = "cpu"
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

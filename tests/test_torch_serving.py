@@ -52,6 +52,7 @@ from repro_torch.data import planted_cocluster_matrix, to_bcoo
 from repro_torch.launch import serve_lamc
 from repro_torch.runtime import shardings
 from repro_torch.streaming import assign
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 CPU = "cpu"
 WAIT = 60.0

@@ -29,6 +29,7 @@ from repro_torch import interop
 from repro_torch.core import lamc, partition, sparse, spectral
 from repro_torch.data import to_bcoo
 from repro_torch.kernels import ops
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 CPU = "cpu"
 DENSITIES = [0.01, 0.05, 0.2]

@@ -25,6 +25,7 @@ from repro_torch import interop
 from repro_torch.core import opcache, sparse
 from repro_torch.data import to_bcoo
 from repro_torch.kernels import ops, ref, spmm
+from torch_parity import release_compiled_code  # noqa: F401 (autouse)
 
 DENSITIES = [0.01, 0.05, 0.2]
 FIELDS = ("blocks", "block_rows", "block_cols", "t_order")

@@ -15,6 +15,7 @@ import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from repro.core import kmeans as jkmeans
 from repro.core import lamc as jlamc
@@ -227,3 +228,15 @@ def stream_draws(chunks, cfg):
                               np.ones(feats_c.shape[0], np.float32),
                               cfg.n_col_clusters, cfg.merge_restarts))
     return draws, fitter
+
+
+@pytest.fixture(scope="module", autouse=True)
+def release_compiled_code():
+    """Give back the memory mappings of a test module's compiled JAX code at
+    its start and end (import it into the module to use it): a worker that
+    ran the reference's fuzz cases before crosses ``vm.max_map_count`` in
+    the module's next compile, which kills the worker and fails the item it
+    was running (ROADMAP.md queue 3)."""
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
